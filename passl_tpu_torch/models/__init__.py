@@ -1,0 +1,2 @@
+from .base import MODELS, build_model, register_model  # noqa: F401
+from . import cait  # noqa: F401

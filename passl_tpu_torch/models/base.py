@@ -1,0 +1,23 @@
+"""Model registry and factory (counterpart of `passl_tpu/models/base.py:28-74`).
+
+Models are `torch.nn.Module`s. Classification models map images NHWC to
+logits, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from torch import nn
+
+from passl_tpu.utils.registry import Registry, build_from_config
+
+MODELS = Registry("models")
+
+
+def register_model(cls=None, name: Optional[str] = None):
+    return MODELS.register(cls, name=name)
+
+
+def build_model(config: dict) -> nn.Module:
+    """config: {'name': <registered name>, **kwargs}."""
+    return build_from_config(dict(config), MODELS)

@@ -1,0 +1,84 @@
+"""Build the CUDA kernels under `passl_tpu_torch/csrc/` and load them.
+
+`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
+interface for `sm_90a` (Hopper), at first use, into
+`build/passl_tpu_torch_kernels/` at the repo root. The library's name is a
+hash of the sources and flags, so an edited source builds anew and an
+unchanged one loads at once. `ctypes` binds it; nothing here includes
+PyTorch's headers, which keeps a build to seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "passl_tpu_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# what the last `load` did: command, seconds, compiler output, library path
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found under {cuda_home}/bin or on PATH: "
+                           "the CUDA kernels cannot be built")
+    return found
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest() -> str:
+    """Hash of the flags and of every source and header under csrc/."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernel library; bind its functions."""
+    srcs = _sources()
+    lib_path = BUILD_DIR / f"libpassl_tpu_torch_{_digest()}.so"
+    t0 = time.perf_counter()
+    cmd: list[str] = []
+    log = ""
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, lib_path)  # atomic: another process sees the whole library or none
+    lib = ctypes.CDLL(str(lib_path))
+    build_info.update(path=str(lib_path), command=cmd, log=log,
+                      seconds=time.perf_counter() - t0, built=bool(cmd))
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.passl_talking_heads_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.passl_talking_heads_fwd.restype = i32
+    lib.passl_talking_heads_max_k.argtypes = []
+    lib.passl_talking_heads_max_k.restype = i32
+    return lib

@@ -1,0 +1,78 @@
+"""Export CLI: config -> the port's serving artifact.
+
+Counterpart of `passl_tpu/tools/export.py` and `Engine.export`
+(`passl_tpu/engine/engine.py:544-579`), with the same `-c`/`-o` surface. It
+builds the model from the config's `Model` and `FP16` blocks alone (no
+optimizer, no data), fills it from `Global.pretrained_model` (a torch
+`state_dict` file, e.g. from `utils.convert.flax_to_torch`) or else from
+`Global.seed`, and writes `<Model.name>.pt` + `.json` under
+`Global.output_dir`.
+
+Usage:
+  python -m passl_tpu_torch.tools.export \
+      -c configs/classification/cait_s24_224_in1k.yaml [-o Global.output_dir=./output/x]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from passl_tpu_torch.core.amp import Policy, resolve_dtype
+from passl_tpu_torch.models import build_model
+from passl_tpu_torch.nn.init import init_module
+from passl_tpu_torch.utils import cfg_util, io, logger
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser("passl_tpu_torch export")
+    ap.add_argument("-c", "--config", required=True, help="config file path")
+    ap.add_argument("-o", "--override", action="append", default=[],
+                    help="config options to override, e.g. -o Global.output_dir=./out")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    """Run the export; return the path of the written `.pt`."""
+    args = parse_args(argv)
+    config = cfg_util.get_config(args.config, overrides=args.override, show=True)
+    g = config.get("Global", {})
+    output_dir = g.get("output_dir", "./output")
+    logger.init_logger(log_file=os.path.join(output_dir, "export.log"))
+    if g.get("checkpoint"):
+        raise NotImplementedError(
+            "export: Global.checkpoint names a JAX training checkpoint, which the port "
+            "does not read; convert its params with passl_tpu_torch.utils.convert and "
+            "pass the saved state_dict as Global.pretrained_model")
+
+    policy = Policy.from_config(config.get("FP16"))
+    model_cfg = dict(config.get("Model", {}))
+    if "dtype" not in model_cfg and policy.compute_dtype != torch.float32:
+        model_cfg["dtype"] = policy.compute_dtype
+    compute_dtype = resolve_dtype(model_cfg.get("dtype"))
+    with torch.device("meta"):
+        model = build_model(model_cfg)
+    model.to_empty(device="cpu")
+
+    weights = g.get("pretrained_model")
+    if weights:
+        model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
+        logger.info(f"export: loaded weights from {weights}")
+    else:
+        logger.warning("export: neither Global.checkpoint nor Global.pretrained_model "
+                       "set — exporting fresh-init weights")
+        init_module(model, torch.Generator().manual_seed(int(g.get("seed", 42))))
+
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"model {model_cfg.get('name')}: {n_params / 1e6:.2f}M params, "
+                f"compute dtype {compute_dtype}")
+    input_spec = {"shape": [None, model.img_size, model.img_size, model.in_chans],
+                  "dtype": "float32", "layout": "NHWC"}
+    return io.export(model, output_dir, model_cfg.get("name", "inference"), model_cfg,
+                     compute_dtype, input_spec)
+
+
+if __name__ == "__main__":
+    main()

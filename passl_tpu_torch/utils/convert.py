@@ -1,0 +1,63 @@
+"""Carry flax parameters over to a port model's `state_dict`.
+
+Names: a flax module path `blocks_3/attn/qkv/kernel` becomes
+`blocks.3.attn.qkv.weight` (a module name ending in `_<i>` is item i of a
+ModuleList), `kernel` and LayerNorm's `scale` become `weight`, other leaf
+names stay. Layouts: a Dense kernel `[in, out]` becomes `[out, in]`, a Conv
+kernel HWIO becomes OIHW. Every flax leaf must land on a torch parameter
+of the same shape, and every torch parameter must be filled.
+"""
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_LIST_ITEM = re.compile(r"_(\d+)$")
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    *modules, leaf = path.split("/")
+    modules = [_LIST_ITEM.sub(r".\1", m) for m in modules]
+    if leaf == "kernel":
+        leaf = "weight"
+        if arr.ndim == 2:
+            arr = arr.T  # Dense [in, out] -> Linear [out, in]
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # Conv HWIO -> OIHW
+        else:
+            raise ValueError(f"{path}: no torch layout for a {arr.ndim}-d kernel")
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join([*modules, leaf]), arr
+
+
+def flax_to_torch(params: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """params: the flax `params` tree as numpy arrays -> a state_dict for `model`."""
+    target = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        key, arr = _torch_name(path, arr)
+        if key not in target:
+            raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
+        if tuple(arr.shape) != tuple(target[key].shape):
+            raise ValueError(f"flax leaf {path!r} has shape {arr.shape} after layout change, "
+                             f"{key!r} has {tuple(target[key].shape)}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(target[key].dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"no flax leaf fills {missing}")
+    return out

@@ -6,7 +6,7 @@ setup(
     name="passl-tpu",
     version="0.1.0",
     description="TPU-native self-supervised vision framework (JAX/XLA/Pallas)",
-    packages=find_packages(include=("passl_tpu", "passl_tpu.*")),
+    packages=find_packages(include=("passl_tpu", "passl_tpu.*", "passl_tpu_torch", "passl_tpu_torch.*")),
     python_requires=">=3.10",
     install_requires=["jax", "flax", "numpy", "pyyaml", "pillow"],
     entry_points={
