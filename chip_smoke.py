@@ -3,10 +3,14 @@
 Run from the repo root:  python3 chip_smoke.py
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
-2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a).
-3. Holds the talking-heads kernel against its plain PyTorch version on the
-   card at the shapes CaiT uses, and times both.
-4. Serves CaiT-S24 at 224 through the user's entry points: the export CLI's
+2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
+   one nvcc per source, side by side.
+3. Holds the talking-heads forward kernel against its plain PyTorch version
+   on the card at the shapes CaiT uses, and times both.
+4. Holds the talking-heads backward kernel against its plain version at the
+   same shapes (ds, dproj_l, dproj_w), checks that two launches give bitwise
+   equal weight gradients, and times both at CaiT-S24's shapes.
+5. Serves CaiT-S24 at 224 through the user's entry points: the export CLI's
    `main` on configs/classification/cait_s24_224_in1k.yaml (random weights
    from Global.seed), then `Predictor(device="cuda")` answering 4 requests of
    32 images. Checks that every self-attention block went through the kernel,
@@ -15,7 +19,17 @@ Run from the repo root:  python3 chip_smoke.py
    Prints each path's request latency, its split into preprocess / predict /
    postprocess, and a torch.profiler view of one more request (device busy
    time, idle share, the kernels that take the most device time).
-5. Prints the card line, a JSON line of kernel results, and last the
+6. Trains CaiT-S24 at 224, full width and depth, bf16, through
+   `Engine(config, mode="train", device="cuda").train()` as tools/train does,
+   on the same config with synthetic images in place of ImageNet (the
+   config's own transforms, RepeatedAugSampler and Mixup/Cutmix), batch 64,
+   8 steps. Checks: the first step's per-parameter gradients of the kernel
+   path against the plain path (th_impl=einsum) from the same seed and batch;
+   every loss finite; 24 forward and 24 backward kernel launches per step;
+   the checkpoint resumes with its step; the eval loop gives top-1 and top-5
+   over 256 images. Prints both paths' step time, images/s and reader-cost
+   share, and a torch.profiler view of one step of each.
+7. Prints the card line, a JSON line of kernel results, and last the
    contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -32,10 +46,15 @@ import time
 import numpy as np
 import torch
 
+from passl_tpu_torch.data import build_dataloader, to_device
+from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
-from passl_tpu_torch.ops.talking_heads import talking_heads_softmax, talking_heads_softmax_ref
+from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax, talking_heads_softmax_bwd,
+                                               talking_heads_softmax_bwd_ref,
+                                               talking_heads_softmax_ref)
 from passl_tpu_torch.tools import export
+from passl_tpu_torch.utils import cfg_util
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "classification", "cait_s24_224_in1k.yaml")
@@ -62,7 +81,10 @@ CASES = [
     ((4, 6, 576, 576), torch.float16),
     ((2, 16, 784, 784), torch.bfloat16),
 ]
-MAIN_CASE = ((BATCH, 8, 196, 196), torch.bfloat16)  # what the serving path hands the kernel
+SERVE_CASE = ((BATCH, 8, 196, 196), torch.bfloat16)  # what the serving path hands the kernel
+TRAIN_BATCH, TRAIN_STEPS = 64, 8
+TRAIN_CASE = ((TRAIN_BATCH, 8, 196, 196), torch.bfloat16)  # what the train step hands both kernels
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 
 
 def log(msg: str) -> None:
@@ -96,8 +118,9 @@ def phase_device() -> str:
 def phase_build() -> None:
     _build.load()
     info = _build.build_info
-    if info["command"]:
-        log("[build] " + " ".join(info["command"]))
+    for cmd in info["commands"]:
+        log("[build] " + " ".join(cmd))
+    if info["log"]:
         log(info["log"].strip())
     log(f"[build] {info['seconds']:.2f} s -> {info['path']} (built={info['built']})")
 
@@ -144,9 +167,55 @@ def phase_kernel() -> dict:
                 rec.update(ms=(kern_a + kern_b) / 2, plain_ms=(plain_a + plain_b) / 2)
                 nbytes = 2 * s.numel() * s.element_size()
                 rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+                rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
             results[(shape, dtype)] = rec
             log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: "
                 + ", ".join(f"{k}={v:.6g}" for k, v in rec.items()))
+    return results
+
+
+# backward vs plain backward: ds as the forward's TOL (one rounding of the same
+# f32 value to the stored type); dproj_l / dproj_w are f32 sums over n*q*k
+# products taken in another order (a fixed two-stage tree here, cuBLAS in
+# the plain version): 1e-4 of the largest entry
+WGRAD_TOL = 1e-4
+
+
+def _wgrad_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_kernel_bwd() -> dict:
+    results = {}
+    for i, (shape, dtype) in enumerate(CASES):
+        s, wl, ww = _inputs(shape, dtype, seed=100 + i)
+        dp = torch.tensor(np.random.RandomState(200 + i).randn(*shape), dtype=dtype, device="cuda")
+        ds, dwl, dww = talking_heads_softmax_bwd(s, dp, wl, ww)
+        ref = talking_heads_softmax_bwd_ref(s, dp, wl, ww)
+        torch.cuda.synchronize()
+        check(ds.dtype == dtype and ds.shape == s.shape, f"backward ds {ds.dtype} {tuple(ds.shape)}")
+        tol = TOL[dtype]
+        torch.testing.assert_close(ds.float(), ref[0].float(), atol=tol, rtol=tol)
+        rec = {"max_abs_err": (ds.float() - ref[0].float()).abs().max().item(), "tol": tol,
+               "dproj_l_rel_err": _wgrad_err(dwl, ref[1]), "dproj_w_rel_err": _wgrad_err(dww, ref[2]),
+               "wgrad_tol": WGRAD_TOL}
+        check(rec["dproj_l_rel_err"] <= WGRAD_TOL and rec["dproj_w_rel_err"] <= WGRAD_TOL,
+              f"backward weight gradients at {shape} {dtype}: {rec}")
+        again = talking_heads_softmax_bwd(s, dp, wl, ww)
+        check(all(torch.equal(a, b) for a, b in zip((ds, dwl, dww), again)),
+              f"backward at {shape} {dtype}: two launches differ")
+        if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
+            plain_a = _time_ms(lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww))
+            kern_a = _time_ms(lambda: talking_heads_softmax_bwd(s, dp, wl, ww))
+            kern_b = _time_ms(lambda: talking_heads_softmax_bwd(s, dp, wl, ww))
+            plain_b = _time_ms(lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww))
+            rec.update(ms=(kern_a + kern_b) / 2, plain_ms=(plain_a + plain_b) / 2)
+            nbytes = 3 * s.numel() * s.element_size()  # read s and dp, write ds
+            rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+            rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
+        results[(shape, dtype)] = rec
+        log(f"[kernel-bwd] {shape} {str(dtype).removeprefix('torch.')}: "
+            + ", ".join(f"{k}={v:.6g}" for k, v in rec.items()) + ", repeatable bitwise")
     return results
 
 
@@ -157,24 +226,27 @@ def _export(out_dir: str, *overrides: str) -> None:
     export.main(argv)
 
 
-def _profile(pred: Predictor, imgs) -> str:
-    """One more request under torch.profiler: device busy time against its wall time."""
+def _profile(fn) -> str:
+    """`fn()` once under torch.profiler: device busy time against its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred(imgs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    count = 0
+    for ev in prof.events():  # kernels and copies; not the ranges annotated on the device
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            count += 1
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return (f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-            f"({100 * (1 - busy / wall_us):.1f}% idle); top: "
+            f"({100 * (1 - busy / wall_us):.1f}% idle), {count} kernels and copies; top: "
             + "; ".join(f"{100 * t / busy:.1f}% {name[:60]}" for name, t in top))
 
 
@@ -199,7 +271,7 @@ def _serve(model_dir: str, requests) -> tuple[np.ndarray, list, int, str]:
         check(len(res) == BATCH and len(res[0]["class_ids"]) == 5, "top-5 results")
         logits.append(out)
     launches = talking_heads_softmax.launches
-    prof = _profile(pred, requests[0])
+    prof = _profile(lambda: pred(requests[0]))
     del pred
     torch.cuda.empty_cache()
     return np.concatenate(logits), stages, launches, prof
@@ -253,25 +325,173 @@ def phase_serve() -> int:
     return launches
 
 
+def _train_config(out_dir: str, *overrides: str):
+    """The in1k config with synthetic images (ImageNet is not on the card's
+    machine; the config's own transforms stay), batch 64, TRAIN_STEPS steps."""
+    config = cfg_util.get_config(CONFIG, overrides=[
+        f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
+        "Global.print_batch_step=1", "Global.eval_during_train=False", *overrides])
+    for mode, size, bs in (("Train", 1024, TRAIN_BATCH), ("Eval", 256, 128)):
+        dl = config["DataLoader"][mode]
+        dl["dataset"] = {"name": "SyntheticDataset", "size": size, "image_size": IMG,
+                         "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
+        dl["sampler"]["batch_size"] = bs
+        dl["loader"]["num_workers"] = 6  # leaves cores to the training process on an 8-core host
+    return config
+
+
+def _first_batch(config) -> tuple:
+    """Epoch 1's first training batch, built as the engine's loader builds it."""
+    dl = dict(config["DataLoader"]["Train"], loader={"num_workers": 0, "prefetch": 0})
+    loader = build_dataloader(dl, "Train", seed=int(config["Global"]["seed"]))
+    loader.set_epoch(1)
+    return to_device(next(iter(loader)), torch.device("cuda"))
+
+
+def _grads(engine: Engine, batch) -> tuple[float, dict]:
+    """Loss and per-parameter gradients of one forward and backward, leaving
+    the state (generator, parameters, step) as it was."""
+    rng = engine.state.generator.get_state()
+    loss = float(engine.train_step.forward_backward(engine.state, batch)["loss"])
+    grads = {n: p.grad.float().clone() for n, p in engine.model.named_parameters()}
+    engine.state.generator.set_state(rng)
+    for p in engine.model.parameters():
+        p.grad = None
+    return loss, grads
+
+
+def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (torch.dot(a, b) / (a.norm() * b.norm())).item()
+
+
+def _step_report(tag: str, engine: Engine) -> dict:
+    hist = engine.train_loop.history
+    check(len(hist) == TRAIN_STEPS, f"{tag}: {len(hist)} logged steps, want {TRAIN_STEPS}")
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"{tag}: non-finite loss in {losses}")
+    steady = hist[1:]  # the first step pays for cuBLAS and allocator warm-up
+    batch = float(np.median([h["batch_cost"] for h in steady]))
+    reader = float(np.median([h["reader_cost"] for h in steady]))
+    rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": batch,
+           "images_per_s": TRAIN_BATCH / batch, "reader_s_median": reader,
+           "reader_share": reader / batch,
+           "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[train] {tag}: losses " + ", ".join(f"{v:.5f}" for v in losses) + "; "
+        + ", ".join(f"{k}={v:.6g}" for k, v in rep.items()))
+    return rep
+
+
+def phase_train() -> dict:
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_k = _train_config(os.path.join(tmp, "kernel"))
+        cfg_p = _train_config(os.path.join(tmp, "plain"), "Model.th_impl=einsum")
+        e_k = Engine(cfg_k, mode="train", device="cuda")
+        e_p = Engine(cfg_p, mode="train", device="cuda")
+        check(all(torch.equal(a, b) for a, b in zip(e_k.model.state_dict().values(),
+                                                    e_p.model.state_dict().values())),
+              "the two paths start from different weights")
+
+        # the first step's gradients, kernel path against plain path
+        batch = _first_batch(cfg_k)
+        talking_heads_softmax.launches = talking_heads_softmax_bwd.launches = 0
+        loss_k, g_k = _grads(e_k, batch)
+        check((talking_heads_softmax.launches, talking_heads_softmax_bwd.launches) == (DEPTH, DEPTH),
+              f"one step launched {talking_heads_softmax.launches} forward and "
+              f"{talking_heads_softmax_bwd.launches} backward kernels, want {DEPTH} each")
+        loss_p, g_p = _grads(e_p, batch)
+        check(talking_heads_softmax.launches == DEPTH, "the plain path launched a kernel")
+        cos_all = _cos(torch.cat([g.flatten() for g in g_k.values()]),
+                       torch.cat([g.flatten() for g in g_p.values()]))
+        cos_th = {n: _cos(g_k[n].flatten(), g_p[n].flatten()) for n in g_k
+                  if n.endswith("proj_l") or n.endswith("proj_w")}
+        worst = min(cos_th, key=cos_th.get)
+        log(f"[train] first-step gradients, kernel vs plain path: loss {loss_k:.6f} vs "
+            f"{loss_p:.6f}, cosine overall {cos_all:.7f}, lowest proj_l/proj_w cosine "
+            f"{cos_th[worst]:.7f} ({worst}), {len(cos_th)} checked")
+        # both paths compute the head mixes and softmax in f32 and round to bf16
+        # once, so they differ only where a bf16 rounding of p or ds flips (and in
+        # summation order): 1e-3 of cosine leaves room for that, and a wrong
+        # gradient term (a transposed mix, a missing softmax term) falls far below
+        check(cos_all >= 0.999 and cos_th[worst] >= 0.999,
+              f"gradients disagree: overall {cos_all}, {worst} {cos_th[worst]}")
+        check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), f"losses disagree: {loss_k} vs {loss_p}")
+        out["grad_cos"] = cos_all
+        out["grad_cos_min_th"] = cos_th[worst]
+
+        # the main path: 8 steps through the kernels, as tools/train runs them
+        talking_heads_softmax.launches = talking_heads_softmax_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        e_k.train()
+        out["launches_fwd"] = talking_heads_softmax.launches
+        out["launches_bwd"] = talking_heads_softmax_bwd.launches
+        check(out["launches_fwd"] == DEPTH * TRAIN_STEPS and out["launches_bwd"] == DEPTH * TRAIN_STEPS,
+              f"{TRAIN_STEPS} steps launched {out['launches_fwd']} forward and "
+              f"{out['launches_bwd']} backward kernels, want {DEPTH * TRAIN_STEPS} each")
+        out["kernel"] = _step_report("bf16 kernel path", e_k)
+        ckpt = os.path.join(tmp, "kernel", "latest.pt")
+        check(os.path.exists(ckpt) and e_k.state.step == TRAIN_STEPS, "no checkpoint after training")
+
+        torch.cuda.reset_peak_memory_stats()
+        e_p.train()
+        check(talking_heads_softmax.launches == DEPTH * TRAIN_STEPS, "the plain path launched a kernel")
+        out["plain"] = _step_report("bf16 plain path ", e_p)
+
+        log(f"[profile] train step, bf16 kernel path: "
+            f"{_profile(lambda: float(e_k.train_step(e_k.state, batch)['loss']))}")
+        log(f"[profile] train step, bf16 plain path:  "
+            f"{_profile(lambda: float(e_p.train_step(e_p.state, batch)['loss']))}")
+        del e_k, e_p, g_k, g_p
+        torch.cuda.empty_cache()
+
+        # resume: one more step from the checkpoint, then evaluate it
+        e_r = Engine(_train_config(os.path.join(tmp, "resume"), f"Global.checkpoint={ckpt}",
+                                   f"Global.max_train_step={TRAIN_STEPS + 1}"),
+                     mode="train", device="cuda")
+        e_r.train()
+        hist = e_r.train_loop.history
+        check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1 and np.isfinite(hist[0]["loss"]),
+              f"resume from step {TRAIN_STEPS}: history {hist}")
+        log(f"[train] resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
+            f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
+        del e_r
+        e_v = Engine(_train_config(os.path.join(tmp, "eval"), f"Global.checkpoint={ckpt}"),
+                     mode="eval", device="cuda")
+        top1 = e_v.eval()
+        m = e_v.eval_loop.last_metrics
+        check(set(m) == {"top1", "top5"} and all(0.0 <= v <= 1.0 for v in m.values())
+              and top1 == m["top1"], f"eval metrics {m}")
+        log(f"[eval] {len(e_v.eval_dataloader.dataset)} synthetic images: top1 {m['top1']:.5f}, "
+            f"top5 {m['top5']:.5f}")
+        del e_v
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    kernel = phase_kernel()
-    launches = phase_serve()
-    main_rec = kernel[MAIN_CASE]
+    fwd = phase_kernel()
+    bwd = phase_kernel_bwd()
+    serve_launches = phase_serve()
+    log(f"[serve] forward kernel launches on the serving path: {serve_launches}")
+    train = phase_train()
+    f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
-    log(json.dumps({"kernels": [{
-        "name": "talking_heads_softmax",
-        "route": "cuda",
-        "source": "passl_tpu_torch/csrc/talking_heads.cu",
-        "replaces": "passl_tpu/ops/pallas/talking_heads.py:79",
-        "launches": launches,
-        "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-    }]}))
+    log(json.dumps({"kernels": [
+        {"name": "talking_heads_softmax", "route": "cuda",
+         "source": "passl_tpu_torch/csrc/talking_heads.cu",
+         "replaces": "passl_tpu/ops/pallas/talking_heads.py:79",
+         "launches": train["launches_fwd"], "max_abs_err": f_rec["max_abs_err"],
+         "ms": f_rec["ms"], "plain_ms": f_rec["plain_ms"]},
+        {"name": "talking_heads_softmax_bwd", "route": "cuda",
+         "source": "passl_tpu_torch/csrc/talking_heads_bwd.cu",
+         "replaces": "passl_tpu/ops/pallas/talking_heads.py:87",
+         "launches": train["launches_bwd"], "max_abs_err": b_rec["max_abs_err"],
+         "ms": b_rec["ms"], "plain_ms": b_rec["plain_ms"]},
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

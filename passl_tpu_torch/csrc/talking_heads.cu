@@ -24,55 +24,11 @@
 // No q padding: the TPU kernel padded q to its VMEM tile; here a row is a
 // block and the ragged k edge is masked per thread.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <math.h>
-#include <stdint.h>
+#include "talking_heads.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // per block; C columns per thread cover k
-constexpr int kMaxWarps = kMaxThreads / 32;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
-
-// Reduces v[0..H) over the block (max when IS_MAX, else sum). Every thread
-// gets the results. `red` holds H * kMaxWarps floats.
-template <int H, bool IS_MAX>
-__device__ __forceinline__ void block_reduce(float (&v)[H], float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int g = 0; g < H; ++g) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v[g], off);
-      v[g] = IS_MAX ? fmaxf(v[g], o) : v[g] + o;
-    }
-    if (lane == 0) red[g * kMaxWarps + warp] = v[g];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < H; ++g) {
-    float r = red[g * kMaxWarps];
-    for (int w = 1; w < nwarps; ++w) {
-      const float o = red[g * kMaxWarps + w];
-      r = IS_MAX ? fmaxf(r, o) : r + o;
-    }
-    v[g] = r;
-  }
-}
+using namespace passl_th;
 
 template <typename T, int H, int C>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -154,22 +110,20 @@ talking_heads_fwd_kernel(const T* __restrict__ s, const float* __restrict__ proj
 template <typename T, int H>
 cudaError_t launch_h(const void* s, const float* wl, const float* ww, void* out, int n, int q,
                      int k, cudaStream_t stream) {
-  // fewest columns per thread that keep the block within kMaxThreads
-  const int cols = (k + kMaxThreads - 1) / kMaxThreads;
   const int64_t rows = (int64_t)n * q;
 #define PASSL_TH_LAUNCH(C)                                                                  \
   {                                                                                         \
-    const int per = (k + (C)-1) / (C);                                                      \
-    const int threads = (per + 31) / 32 * 32;                                               \
-    talking_heads_fwd_kernel<T, H, C><<<(unsigned)rows, threads, 0, stream>>>(              \
+    talking_heads_fwd_kernel<T, H, C><<<(unsigned)rows, threads_for(k, C), 0, stream>>>(    \
         static_cast<const T*>(s), wl, ww, static_cast<T*>(out), q, k);                      \
     return cudaGetLastError();                                                              \
   }
-  if (cols <= 1) PASSL_TH_LAUNCH(1)
-  if (cols <= 2) PASSL_TH_LAUNCH(2)
-  if (cols <= 4) PASSL_TH_LAUNCH(4)
+  switch (cols_per_thread(k)) {
+    case 1: PASSL_TH_LAUNCH(1)
+    case 2: PASSL_TH_LAUNCH(2)
+    case 4: PASSL_TH_LAUNCH(4)
+    default: return cudaErrorInvalidValue;
+  }
 #undef PASSL_TH_LAUNCH
-  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -194,7 +148,8 @@ extern "C" int passl_talking_heads_fwd(const void* s, const void* proj_l, const 
                                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n <= 0 || q <= 0 || k <= 0 || k > 4 * kMaxThreads) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || q <= 0 || k <= 0 || k > passl_th::kMaxCols * passl_th::kMaxThreads)
+    return (int)cudaErrorInvalidValue;
   const float* wl = static_cast<const float*>(proj_l);
   const float* ww = static_cast<const float*>(proj_w);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -208,4 +163,4 @@ extern "C" int passl_talking_heads_fwd(const void* s, const void* proj_l, const 
 }
 
 // Largest k the kernel takes (columns per thread times threads per block).
-extern "C" int passl_talking_heads_max_k() { return 4 * kMaxThreads; }
+extern "C" int passl_talking_heads_max_k() { return passl_th::kMaxCols * passl_th::kMaxThreads; }

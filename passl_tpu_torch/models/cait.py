@@ -131,9 +131,9 @@ class CaiTSABlock(nn.Module):
         tinit.constant_(self.gamma_1, self.init_values)
         tinit.constant_(self.gamma_2, self.init_values)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dp1(self.attn(self.norm1(x)) * self.gamma_1)
-        return x + self.dp2(self.mlp(self.norm2(x)) * self.gamma_2)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.dp1(self.attn(self.norm1(x)) * self.gamma_1, generator)
+        return x + self.dp2(self.mlp(self.norm2(x)) * self.gamma_2, generator)
 
 
 class CaiTCABlock(nn.Module):
@@ -160,7 +160,11 @@ class CaiTCABlock(nn.Module):
 
 @register_model
 class CaiT(nn.Module):
-    """images [n, H, W, 3] (NHWC) -> logits [n, num_classes] at `dtype`."""
+    """images [n, H, W, 3] (NHWC) -> logits [n, num_classes] at `dtype`.
+
+    In training, `generator` (a torch.Generator on the images' device) draws
+    the stochastic-depth masks of every block, in block order.
+    """
 
     def __init__(self, img_size: int = 224, patch_size: int = 16, embed_dim: int = 384,
                  depth: int = 24, num_heads: int = 8, depth_token_only: int = 2,
@@ -192,12 +196,12 @@ class CaiT(nn.Module):
         _trunc02(self.pos_embed, generator=generator)
         _trunc02(self.cls_token, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         n = x.shape[0]
         x = self.patch_embed(x)
         x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         cls = self.cls_token.to(x.dtype).expand(n, -1, -1)
         for blk in self.blocks_token_only:
             cls = blk(cls, x)

@@ -80,18 +80,26 @@ class LayerNorm(nn.LayerNorm):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample; the identity in eval mode."""
+    """Stochastic depth per sample; the identity in eval mode.
+
+    As the JAX `DropPath` draws from the step's `dropout` stream, this one
+    draws from an explicit `torch.Generator` on the tensor's device, handed
+    down by the caller (the train state owns and checkpoints it), and never
+    from the global RNG: in training with `rate > 0` a generator is required.
+    """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
+        if generator is None:
+            raise ValueError("DropPath: training with rate > 0 needs an explicit torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -1,7 +1,8 @@
 """Build the CUDA kernels under `passl_tpu_torch/csrc/` and load them.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface for `sm_90a` (Hopper), at first use, into
+`nvcc` compiles every `csrc/*.cu` for `sm_90a` (Hopper), one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface, at first use, into
 `build/passl_tpu_torch_kernels/` at the repo root. The library's name is a
 hash of the sources and flags, so an edited source builds anew and an
 unchanged one loads at once. `ctypes` binds it; nothing here includes
@@ -21,9 +22,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "passl_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# what the last `load` did: command, seconds, compiler output, library path
+# what the last `load` did: nvcc commands, seconds, compiler output, library path
 build_info: dict = {}
 
 
@@ -55,30 +56,59 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(nvcc: str, srcs: list[Path], out: Path) -> tuple[list[list[str]], str]:
+    """One `nvcc -c` per source, run side by side, then one link into `out`."""
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = ""
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out_text, _ = proc.communicate()
+        log += out_text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    if not failed:
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(out),
+                *map(str, objs)]
+        cmds.append(link)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(link)}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + log)
+    return cmds, log
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; bind its functions."""
     srcs = _sources()
     lib_path = BUILD_DIR / f"libpassl_tpu_torch_{_digest()}.so"
     t0 = time.perf_counter()
-    cmd: list[str] = []
+    cmds: list[list[str]] = []
     log = ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        cmds, log = _compile(_nvcc(), srcs, tmp)
         os.replace(tmp, lib_path)  # atomic: another process sees the whole library or none
     lib = ctypes.CDLL(str(lib_path))
-    build_info.update(path=str(lib_path), command=cmd, log=log,
-                      seconds=time.perf_counter() - t0, built=bool(cmd))
+    build_info.update(path=str(lib_path), commands=cmds, log=log,
+                      seconds=time.perf_counter() - t0, built=bool(cmds))
 
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.passl_talking_heads_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.passl_talking_heads_fwd.restype = i32
     lib.passl_talking_heads_max_k.argtypes = []
     lib.passl_talking_heads_max_k.restype = i32
+    lib.passl_talking_heads_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                            i32, i32, i32, i32, i32, i32, vp]
+    lib.passl_talking_heads_bwd.restype = i32
+    lib.passl_talking_heads_bwd_blocks.argtypes = [i32, i32]
+    lib.passl_talking_heads_bwd_blocks.restype = ctypes.c_longlong
     return lib

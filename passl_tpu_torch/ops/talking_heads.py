@@ -1,14 +1,17 @@
-"""Talking-heads softmax: the CUDA kernel's wrapper and its plain version.
+"""Talking-heads softmax: the CUDA kernels' wrappers and their plain versions.
 
 CaiT's TalkingHeadAttention wraps the softmax in two head mixes:
 
     p[g] = sum_i proj_w[i, g] * softmax_k( sum_j proj_l[j, i] * s[j] )
 
-over scores s [n, h, q, k]. `talking_heads_softmax` runs it on the card as
-one pass (`csrc/talking_heads.cu`, the counterpart of
-`passl_tpu/ops/pallas/talking_heads.py::talking_heads_softmax`);
-`talking_heads_softmax_ref` is the three-op chain in f32. Forward only:
-the kernel path refuses tensors that need a gradient.
+over scores s [n, h, q, k]. `talking_heads_softmax` is differentiable in all
+three arguments through one `torch.autograd.Function`, the counterpart of the
+custom VJP in `passl_tpu/ops/pallas/talking_heads.py`: on CUDA tensors its
+forward is one pass of `csrc/talking_heads.cu` and its backward one pass of
+`csrc/talking_heads_bwd.cu`, which recomputes the softmax from s (nothing but
+s and the weights is saved). On CPU tensors the same Function runs the plain
+versions, `talking_heads_softmax_ref` and `talking_heads_softmax_bwd_ref`,
+the f32 formulas of the two Pallas kernels.
 """
 from __future__ import annotations
 
@@ -28,6 +31,21 @@ def talking_heads_softmax_ref(s: torch.Tensor, proj_l: torch.Tensor,
     return torch.einsum("nhqk,hg->ngqk", a, proj_w.float()).to(s.dtype)
 
 
+def talking_heads_softmax_bwd_ref(s: torch.Tensor, dp: torch.Tensor, proj_l: torch.Tensor,
+                                  proj_w: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward, the f32 formula of the Pallas `_bwd_kernel`: returns
+    (ds at s.dtype, dproj_l f32, dproj_w f32) for the incoming gradient dp."""
+    s32, dp32, wl, ww = s.float(), dp.float(), proj_l.float(), proj_w.float()
+    p_mid = torch.softmax(torch.einsum("nhqk,hg->ngqk", s32, wl), dim=-1)
+    dp_mid = torch.einsum("ngqk,hg->nhqk", dp32, ww)
+    ds_mid = p_mid * (dp_mid - (dp_mid * p_mid).sum(-1, keepdim=True))
+    ds = torch.einsum("ngqk,hg->nhqk", ds_mid, wl)
+    dwl = torch.einsum("nhqk,ngqk->hg", s32, ds_mid)
+    dww = torch.einsum("nhqk,ngqk->hg", p_mid, dp32)
+    return ds.to(s.dtype), dwl, dww
+
+
 def _check(s: torch.Tensor, proj_l: torch.Tensor, proj_w: torch.Tensor) -> None:
     if s.device.type != "cuda":
         raise ValueError(f"talking_heads_softmax: the kernel takes CUDA tensors, got {s.device}")
@@ -45,34 +63,27 @@ def _check(s: torch.Tensor, proj_l: torch.Tensor, proj_w: torch.Tensor) -> None:
         if tuple(w.shape) != (h, h) or w.device != s.device:
             raise ValueError(f"talking_heads_softmax: {name} must be [{h}, {h}] on {s.device}, "
                              f"got {tuple(w.shape)} on {w.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (s, proj_l, proj_w)):
-        raise RuntimeError("talking_heads_softmax: the CUDA kernel is forward only; "
-                           "call it under torch.no_grad() or torch.inference_mode()")
     if n * q >= 2**31:
         raise ValueError(f"talking_heads_softmax: n*q={n * q} rows exceed the grid")
+    max_k = _build.load().passl_talking_heads_max_k()
+    if k > max_k:
+        raise ValueError(f"talking_heads_softmax: k={k} exceeds {max_k}")
 
 
-def talking_heads_softmax(s: torch.Tensor, proj_l: torch.Tensor,
-                          proj_w: torch.Tensor) -> torch.Tensor:
-    """p = proj_w-mix(softmax_k(proj_l-mix(s))), read once and written once.
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
-    s: [n, h, q, k] scores, f32/bf16/f16, contiguous; proj_l, proj_w: [h, h]
-    (out[g] = sum_i w[i, g] in[i]). Returns p at s.dtype. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises.
-    """
-    if s.device.type == "cpu":
-        return talking_heads_softmax_ref(s, proj_l, proj_w)
+
+def _launch_fwd(s: torch.Tensor, proj_l: torch.Tensor, proj_w: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel (CUDA tensors only; no autograd)."""
     _check(s, proj_l, proj_w)
-    lib = _build.load()
     n, h, q, k = s.shape
-    if k > lib.passl_talking_heads_max_k():
-        raise ValueError(f"talking_heads_softmax: k={k} exceeds {lib.passl_talking_heads_max_k()}")
-    wl = proj_l.to(torch.float32).contiguous()
-    ww = proj_w.to(torch.float32).contiguous()
+    wl = proj_l.detach().to(torch.float32).contiguous()
+    ww = proj_w.detach().to(torch.float32).contiguous()
     out = torch.empty_like(s)
-    rc = lib.passl_talking_heads_fwd(
+    rc = _build.load().passl_talking_heads_fwd(
         s.data_ptr(), wl.data_ptr(), ww.data_ptr(), out.data_ptr(), n, h, q, k,
-        _DTYPE_CODES[s.dtype], s.device.index, torch.cuda.current_stream(s.device).cuda_stream)
+        _DTYPE_CODES[s.dtype], s.device.index, _stream(s))
     if rc != 0:
         raise RuntimeError(f"talking_heads_softmax: launch failed with cudaError {rc} "
                            f"for s {tuple(s.shape)} {s.dtype}")
@@ -80,5 +91,74 @@ def talking_heads_softmax(s: torch.Tensor, proj_l: torch.Tensor,
     return out
 
 
-talking_heads_softmax.launches = 0  # kernel launches since the last reset
+def talking_heads_softmax_bwd(s: torch.Tensor, dp: torch.Tensor, proj_l: torch.Tensor,
+                              proj_w: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the backward kernel and its fixed-order weight-gradient
+    reduction (CUDA tensors only): (ds at s.dtype, dproj_l f32, dproj_w f32),
+    bitwise the same on every launch with the same inputs."""
+    _check(s, proj_l, proj_w)
+    if dp.shape != s.shape or dp.dtype != s.dtype or dp.device != s.device:
+        raise ValueError(f"talking_heads_softmax_bwd: dp must match s {tuple(s.shape)} {s.dtype} "
+                         f"on {s.device}, got {tuple(dp.shape)} {dp.dtype} on {dp.device}")
+    if not dp.is_contiguous():
+        raise ValueError("talking_heads_softmax_bwd: dp must be contiguous")
+    lib = _build.load()
+    n, h, q, k = s.shape
+    wl = proj_l.detach().to(torch.float32).contiguous()
+    ww = proj_w.detach().to(torch.float32).contiguous()
+    ds = torch.empty_like(s)
+    partials = torch.empty((lib.passl_talking_heads_bwd_blocks(n, q), 2 * h * h),
+                           dtype=torch.float32, device=s.device)
+    dwl = torch.empty((h, h), dtype=torch.float32, device=s.device)
+    dww = torch.empty((h, h), dtype=torch.float32, device=s.device)
+    rc = lib.passl_talking_heads_bwd(
+        s.data_ptr(), dp.data_ptr(), wl.data_ptr(), ww.data_ptr(), ds.data_ptr(),
+        partials.data_ptr(), dwl.data_ptr(), dww.data_ptr(), n, h, q, k,
+        _DTYPE_CODES[s.dtype], s.device.index, _stream(s))
+    if rc != 0:
+        raise RuntimeError(f"talking_heads_softmax_bwd: launch failed with cudaError {rc} "
+                           f"for s {tuple(s.shape)} {s.dtype}")
+    talking_heads_softmax_bwd.launches += 1
+    return ds, dwl, dww
 
+
+talking_heads_softmax_bwd.launches = 0  # backward kernel launches since the last reset
+
+
+class TalkingHeadsSoftmax(torch.autograd.Function):
+    """The kernels on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, s, proj_l, proj_w):
+        ctx.save_for_backward(s, proj_l, proj_w)
+        if s.device.type == "cpu":
+            return talking_heads_softmax_ref(s, proj_l, proj_w)
+        return _launch_fwd(s, proj_l, proj_w)
+
+    @staticmethod
+    def backward(ctx, dp):
+        s, proj_l, proj_w = ctx.saved_tensors
+        dp = dp.to(s.dtype).contiguous()
+        if s.device.type == "cpu":
+            ds, dwl, dww = talking_heads_softmax_bwd_ref(s, dp, proj_l, proj_w)
+        else:
+            ds, dwl, dww = talking_heads_softmax_bwd(s, dp, proj_l, proj_w)
+        need_s, need_l, need_w = ctx.needs_input_grad
+        return (ds if need_s else None, dwl.to(proj_l.dtype) if need_l else None,
+                dww.to(proj_w.dtype) if need_w else None)
+
+
+def talking_heads_softmax(s: torch.Tensor, proj_l: torch.Tensor,
+                          proj_w: torch.Tensor) -> torch.Tensor:
+    """p = proj_w-mix(softmax_k(proj_l-mix(s))), read once and written once.
+
+    s: [n, h, q, k] scores, f32/bf16/f16, contiguous; proj_l, proj_w: [h, h]
+    (out[g] = sum_i w[i, g] in[i]). Returns p at s.dtype, differentiable in
+    all three. A CPU tensor takes the plain versions; a CUDA tensor launches
+    the kernels or raises.
+    """
+    return TalkingHeadsSoftmax.apply(s, proj_l, proj_w)
+
+
+talking_heads_softmax.launches = 0  # forward kernel launches since the last reset

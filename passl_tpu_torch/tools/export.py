@@ -3,10 +3,11 @@
 Counterpart of `passl_tpu/tools/export.py` and `Engine.export`
 (`passl_tpu/engine/engine.py:544-579`), with the same `-c`/`-o` surface. It
 builds the model from the config's `Model` and `FP16` blocks alone (no
-optimizer, no data), fills it from `Global.pretrained_model` (a torch
-`state_dict` file, e.g. from `utils.convert.flax_to_torch`) or else from
-`Global.seed`, and writes `<Model.name>.pt` + `.json` under
-`Global.output_dir`.
+optimizer, no data), fills it from `Global.checkpoint` (a checkpoint the
+port's trainer wrote; a JAX `.ckpt` is refused), else from
+`Global.pretrained_model` (a torch `state_dict` file, e.g. from
+`utils.convert.flax_to_torch`), else from `Global.seed`, and writes
+`<Model.name>.pt` + `.json` under `Global.output_dir`.
 
 Usage:
   python -m passl_tpu_torch.tools.export \
@@ -41,11 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     g = config.get("Global", {})
     output_dir = g.get("output_dir", "./output")
     logger.init_logger(log_file=os.path.join(output_dir, "export.log"))
-    if g.get("checkpoint"):
-        raise NotImplementedError(
-            "export: Global.checkpoint names a JAX training checkpoint, which the port "
-            "does not read; convert its params with passl_tpu_torch.utils.convert and "
-            "pass the saved state_dict as Global.pretrained_model")
+    checkpoint = io.resolve_checkpoint(g["checkpoint"]) if g.get("checkpoint") else None
 
     policy = Policy.from_config(config.get("FP16"))
     model_cfg = dict(config.get("Model", {}))
@@ -57,7 +54,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     model.to_empty(device="cpu")
 
     weights = g.get("pretrained_model")
-    if weights:
+    if checkpoint:
+        state = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        model.load_state_dict(state["model"])
+        logger.info(f"export: loaded the trained weights of {checkpoint} (step {state['step']})")
+    elif weights:
         model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
         logger.info(f"export: loaded weights from {weights}")
     else:

@@ -1,19 +1,86 @@
-"""The port's serving artifact (counterpart of `passl_tpu/utils/io.py:274 export`).
+"""Checkpoints and the serving artifact of the port.
 
+Checkpoints (counterpart of `passl_tpu/utils/io.py:52-136`): a train state
+goes to `<output_dir>/<prefix>.pt` (`latest`, `epoch_N`, `best`) as the
+`TrainState.state_dict()` read back with `torch.load(weights_only=True)`,
+beside a `<prefix>.states` json with the step, the save time and metrics;
+only the newest `max_num_checkpoint` `epoch_*` checkpoints are kept. The
+port writes its own format: a JAX `.ckpt` (flax msgpack) is refused.
+
+Serving artifact (counterpart of `passl_tpu/utils/io.py:274 export`):
 `<name>.pt` holds the model's `state_dict` (float32 parameters), read back
 with `torch.load(weights_only=True)`. `<name>.json` holds what rebuilds the
 model around it: the `Model` config, the compute dtype, and the input spec.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
+import time
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.amp import dtype_name
 from ..models import build_model
 from . import logger
+
+
+def _is_primary() -> bool:
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def save_checkpoint(state, output_dir: str, prefix: str = "latest", max_num_checkpoint: int = 3,
+                    metrics: Optional[Dict[str, float]] = None) -> str:
+    """Write `state` (a TrainState) to `<output_dir>/<prefix>.pt` and `.states`
+    on the primary process; return the path ("" elsewhere)."""
+    if not _is_primary():
+        return ""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"{prefix}.pt")
+    tmp = path + ".tmp"
+    torch.save(state.state_dict(), tmp)
+    os.replace(tmp, path)
+    with open(os.path.join(output_dir, f"{prefix}.states"), "w") as f:
+        json.dump({"metric": metrics or {}, "save_time": time.time(), "step": state.step}, f)
+    _gc_checkpoints(output_dir, max_num_checkpoint)
+    logger.info(f"saved checkpoint {path} (step {state.step})")
+    return path
+
+
+def _gc_checkpoints(output_dir: str, keep: int) -> None:
+    """Keep the newest `keep` epoch_* checkpoints; never touch best or latest."""
+    cands = sorted((os.path.getmtime(p), p) for p in glob.glob(os.path.join(output_dir, "epoch_*.pt")))
+    for _, p in cands[:-keep] if keep > 0 else []:
+        os.remove(p)
+        st = p[:-len(".pt")] + ".states"
+        if os.path.exists(st):
+            os.remove(st)
+
+
+def resolve_checkpoint(path: str) -> str:
+    """The port checkpoint a config's `Global.checkpoint` names (`.pt`
+    optional); raises on a JAX checkpoint."""
+    if path.endswith(".ckpt") or path.endswith(".orbax") or os.path.isdir(path):
+        raise NotImplementedError(
+            f"Global.checkpoint={path} names a checkpoint of the JAX package (flax msgpack or "
+            "orbax), which the port does not read; train with the port, or convert the params "
+            "with passl_tpu_torch.utils.convert and pass them as Global.pretrained_model")
+    if not os.path.exists(path) and os.path.exists(path + ".pt"):
+        path += ".pt"
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    return path
+
+
+def load_checkpoint(path: str, state, device: Optional[torch.device] = None):
+    """Restore `state` (a TrainState) from a port checkpoint in place; return it."""
+    path = resolve_checkpoint(path)
+    state.load_state_dict(torch.load(path, map_location=device or "cpu", weights_only=True))
+    logger.info(f"resumed from {path} (step {state.step})")
+    return state
 
 
 def export(model: torch.nn.Module, output_dir: str, name: str, model_config: dict,

@@ -128,9 +128,6 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     s, wl, ww = _on(cuda, torch.float32, *_inputs(2, 4, 16, 16, seed=0))
-    with pytest.raises(RuntimeError, match="forward only"):
-        talking_heads_softmax(s.requires_grad_(), wl, ww)
-    s = s.detach()
     with torch.no_grad():
         with pytest.raises(ValueError, match="contiguous"):
             talking_heads_softmax(s.transpose(2, 3), wl, ww)
