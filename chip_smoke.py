@@ -10,7 +10,14 @@ Run from the repo root:  python3 chip_smoke.py
 4. Holds the talking-heads backward kernel against its plain version at the
    same shapes (ds, dproj_l, dproj_w), checks that two launches give bitwise
    equal weight gradients, and times both at CaiT-S24's shapes.
-5. Serves CaiT-S24 at 224 through the user's entry points: the export CLI's
+5. Holds the window-attention forward kernel against its plain version at
+   Swin-T's four stage shapes (serving batch 32, training batch 128), with no
+   mask, one mask for every group, d = 59 and 64, and Swin-B's head counts,
+   in bf16 and f32, and times both at Swin-T's stage 1 with 128 images.
+6. The same for the window-attention backward kernel (dq, dk, dv, and dbias
+   within 1e-4 of its largest entry), checking that two launches are bitwise
+   equal.
+7. Serves CaiT-S24 at 224 through the user's entry points: the export CLI's
    `main` on configs/classification/cait_s24_224_in1k.yaml (random weights
    from Global.seed), then `Predictor(device="cuda")` answering 4 requests of
    32 images. Checks that every self-attention block went through the kernel,
@@ -19,7 +26,12 @@ Run from the repo root:  python3 chip_smoke.py
    Prints each path's request latency, its split into preprocess / predict /
    postprocess, and a torch.profiler view of one more request (device busy
    time, idle share, the kernels that take the most device time).
-6. Trains CaiT-S24 at 224, full width and depth, bf16, through
+8. Serves Swin-T at 224 the same way from
+   configs/classification/swin_tiny_patch4_window7_224_in1k.yaml with
+   Model.attn_impl=fused: 12 window-attention launches per forward, finite
+   logits, top-5; and against the same weights through the einsum path in
+   the config's bf16, at softmax_dtype=float32, and in f32.
+9. Trains CaiT-S24 at 224, full width and depth, bf16, through
    `Engine(config, mode="train", device="cuda").train()` as tools/train does,
    on the same config with synthetic images in place of ImageNet (the
    config's own transforms, RepeatedAugSampler and Mixup/Cutmix), batch 64,
@@ -27,9 +39,14 @@ Run from the repo root:  python3 chip_smoke.py
    path against the plain path (th_impl=einsum) from the same seed and batch;
    every loss finite; 24 forward and 24 backward kernel launches per step;
    the checkpoint resumes with its step; the eval loop gives top-1 and top-5
-   over 256 images. Prints both paths' step time, images/s and reader-cost
-   share, and a torch.profiler view of one step of each.
-7. Prints the card line, a JSON line of kernel results, and last the
+   over 256 images. Prints both paths' step time, images/s, reader-cost
+   share and peak memory, and a torch.profiler view of one step of each.
+10. Trains Swin-T at 224 the same way, full width and depth, bf16, batch 128
+   (the recipe's per-card batch), 8 steps, with Model.attn_impl=fused: 12
+   forward and 12 backward launches per step, first-step gradients against
+   the einsum path at softmax_dtype=float32 (overall and for each of the 12
+   relative_position_bias_tables), resume, eval.
+11. Prints the card line, a JSON line of kernel results, and last the
    contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -37,11 +54,13 @@ then. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import tempfile
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -53,6 +72,9 @@ from passl_tpu_torch.ops import _build
 from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax, talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
+from passl_tpu_torch.ops.window_attention import (fused_window_attention,
+                                                  fused_window_attention_bwd,
+                                                  window_attention_bwd_ref, window_attention_ref)
 from passl_tpu_torch.tools import export
 from passl_tpu_torch.utils import cfg_util
 
@@ -60,6 +82,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "classification", "cait_s24_224_in1k.yaml")
 MODEL_NAME = "cait_s24_224"
 DEPTH = 24  # talking-heads blocks of CaiT-S24: one kernel launch each per forward
+SWIN_CONFIG = os.path.join(REPO, "configs", "classification",
+                           "swin_tiny_patch4_window7_224_in1k.yaml")
+SWIN_NAME = "swin_tiny_patch4_window7_224"
+SWIN_BLOCKS = 12  # Swin-T's window-attention blocks: one kernel launch each per forward
 BATCH, REQUESTS = 32, 4
 IMG, NUM_CLASSES = 224, 1000
 NORMALIZE = [{"NormalizeImage": {"scale": 1.0 / 255, "mean": [0.485, 0.456, 0.406],
@@ -84,6 +110,20 @@ CASES = [
 SERVE_CASE = ((BATCH, 8, 196, 196), torch.bfloat16)  # what the serving path hands the kernel
 TRAIN_BATCH, TRAIN_STEPS = 64, 8
 TRAIN_CASE = ((TRAIN_BATCH, 8, 196, 196), torch.bfloat16)  # what the train step hands both kernels
+SWIN_TRAIN_BATCH = 128  # the recipe's per-card batch: 1,024 over 8 cards
+# window attention (B, h, L, d, nWm): Swin-T's stages 1-4 at 128 and at 32
+# images (stage i packs 2 windows into L = 98 and cycles nWm = 32, 8, 2 masks;
+# stage 4's window covers its map: L = 49, no mask); one mask for every
+# group; swin_huge's d = 59 and swin_giant's d = 64 (2 images, stage 1);
+# Swin-B's 4 and 32 heads (stages 1 and 4, 32 images)
+WATTN_SHAPES = [
+    (4096, 3, 98, 32, 32), (1024, 6, 98, 32, 8), (256, 12, 98, 32, 2), (128, 24, 49, 32, None),
+    (1024, 3, 98, 32, 32), (256, 6, 98, 32, 8), (64, 12, 98, 32, 2), (32, 24, 49, 32, None),
+    (64, 4, 98, 32, 1), (64, 6, 98, 59, 32), (64, 8, 98, 64, 32),
+    (1024, 4, 98, 32, 32), (32, 32, 49, 32, None),
+]
+WATTN_TIMED = (4096, 3, 98, 32, 32)  # Swin-T stage 1, 128 images: timed in bf16 and f32
+DBIAS_TOL = 1e-4  # dbias: f32 sums over B groups in another order, of the largest entry
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 
 
@@ -146,6 +186,20 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_pair(kernel, plain, nbytes: int) -> dict:
+    """Kernel and plain version timed in turns (plain, kernel, kernel, plain),
+    with the kernel's rate against the card's bytes bound."""
+    plain_a, kern_a, kern_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
+    rec = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2}
+    rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
+    return rec
+
+
+def _fmt(rec: dict) -> str:
+    return ", ".join(f"{k}={v:.6g}" for k, v in rec.items())
+
+
 def phase_kernel() -> dict:
     results = {}
     with torch.inference_mode():
@@ -160,17 +214,11 @@ def phase_kernel() -> dict:
             torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
             rec = {"max_abs_err": err, "tol": tol}
             if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
-                plain_a = _time_ms(lambda: talking_heads_softmax_ref(s, wl, ww))
-                kern_a = _time_ms(lambda: talking_heads_softmax(s, wl, ww))
-                kern_b = _time_ms(lambda: talking_heads_softmax(s, wl, ww))
-                plain_b = _time_ms(lambda: talking_heads_softmax_ref(s, wl, ww))
-                rec.update(ms=(kern_a + kern_b) / 2, plain_ms=(plain_a + plain_b) / 2)
-                nbytes = 2 * s.numel() * s.element_size()
-                rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
-                rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
+                rec.update(_time_pair(lambda: talking_heads_softmax(s, wl, ww),
+                                      lambda: talking_heads_softmax_ref(s, wl, ww),
+                                      2 * s.numel() * s.element_size()))
             results[(shape, dtype)] = rec
-            log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: "
-                + ", ".join(f"{k}={v:.6g}" for k, v in rec.items()))
+            log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
     return results
 
 
@@ -205,22 +253,94 @@ def phase_kernel_bwd() -> dict:
         check(all(torch.equal(a, b) for a, b in zip((ds, dwl, dww), again)),
               f"backward at {shape} {dtype}: two launches differ")
         if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
-            plain_a = _time_ms(lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww))
-            kern_a = _time_ms(lambda: talking_heads_softmax_bwd(s, dp, wl, ww))
-            kern_b = _time_ms(lambda: talking_heads_softmax_bwd(s, dp, wl, ww))
-            plain_b = _time_ms(lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww))
-            rec.update(ms=(kern_a + kern_b) / 2, plain_ms=(plain_a + plain_b) / 2)
-            nbytes = 3 * s.numel() * s.element_size()  # read s and dp, write ds
-            rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
-            rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
+            rec.update(_time_pair(lambda: talking_heads_softmax_bwd(s, dp, wl, ww),
+                                  lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww),
+                                  3 * s.numel() * s.element_size()))  # read s and dp, write ds
         results[(shape, dtype)] = rec
-        log(f"[kernel-bwd] {shape} {str(dtype).removeprefix('torch.')}: "
-            + ", ".join(f"{k}={v:.6g}" for k, v in rec.items()) + ", repeatable bitwise")
+        log(f"[kernel-bwd] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
+            ", repeatable bitwise")
     return results
 
 
-def _export(out_dir: str, *overrides: str) -> None:
-    argv = ["-c", CONFIG, "-o", f"Global.output_dir={out_dir}"]
+def _wattn_inputs(shape, dtype, seed):
+    """q, k, v and do [B, h, L, d] at dtype; bias [h, L, L] f32; mask
+    [nWm, L, L] of 0 and -100 as Swin's shift and pack masks, or None. Drawn
+    on the card from a seeded generator (numpy takes seconds at stage 1)."""
+    b, h, l, d, n_mask = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device="cuda")
+
+    q, k, v, do = (randn(b, h, l, d).to(dtype) for _ in range(4))
+    bias = randn(h, l, l) * 0.5
+    mask = None
+    if n_mask:
+        mask = torch.where(torch.rand(n_mask, l, l, generator=gen, device="cuda") > 0.7, -100.0, 0.0)
+    return q, k, v, do, bias, mask
+
+
+def _wattn_cases():
+    return [(shape, dtype) for shape in WATTN_SHAPES for dtype in (torch.bfloat16, torch.float32)]
+
+
+def phase_wattn() -> dict:
+    results = {}
+    with torch.inference_mode():
+        for i, (shape, dtype) in enumerate(_wattn_cases()):
+            q, k, v, _, bias, mask = _wattn_inputs(shape, dtype, seed=300 + i)
+            out = fused_window_attention(q, k, v, bias, mask)
+            ref = window_attention_ref(q, k, v, bias, mask)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == q.shape, f"wattn output {out.dtype} {tuple(out.shape)}")
+            tol = TOL[dtype]
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+            rec = {"max_abs_err": (out.float() - ref.float()).abs().max().item(), "tol": tol}
+            if shape == WATTN_TIMED:  # read q, k, v and write out once
+                rec.update(_time_pair(lambda: fused_window_attention(q, k, v, bias, mask),
+                                      lambda: window_attention_ref(q, k, v, bias, mask),
+                                      4 * q.numel() * q.element_size()))
+            results[(shape, dtype)] = rec
+            log(f"[wattn] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
+            del q, k, v, bias, mask, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_wattn_bwd() -> dict:
+    results = {}
+    for i, (shape, dtype) in enumerate(_wattn_cases()):
+        q, k, v, do, bias, mask = _wattn_inputs(shape, dtype, seed=400 + i)
+        got = fused_window_attention_bwd(q, k, v, bias, mask, do)
+        want = window_attention_bwd_ref(q, k, v, bias, mask, do)
+        torch.cuda.synchronize()
+        tol = TOL[dtype]
+        rec = {"tol": tol}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == q.shape, f"wattn-bwd {name} {g.dtype} {tuple(g.shape)}")
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol, msg=name)
+            rec[f"{name}_max_abs_err"] = (g.float() - w.float()).abs().max().item()
+        rec["max_abs_err"] = max(rec["dq_max_abs_err"], rec["dk_max_abs_err"], rec["dv_max_abs_err"])
+        rec["dbias_rel_err"] = _wgrad_err(got[3], want[3])
+        rec["dbias_tol"] = DBIAS_TOL
+        check(rec["dbias_rel_err"] <= DBIAS_TOL, f"wattn-bwd dbias at {shape} {dtype}: {rec}")
+        again = fused_window_attention_bwd(q, k, v, bias, mask, do)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"wattn-bwd at {shape} {dtype}: two launches differ")
+        if shape == WATTN_TIMED:  # read q, k, v, do and write dq, dk, dv once
+            rec.update(_time_pair(lambda: fused_window_attention_bwd(q, k, v, bias, mask, do),
+                                  lambda: window_attention_bwd_ref(q, k, v, bias, mask, do),
+                                  7 * q.numel() * q.element_size()))
+        results[(shape, dtype)] = rec
+        log(f"[wattn-bwd] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
+            ", repeatable bitwise")
+        del q, k, v, bias, mask, do, got, want, again
+    torch.cuda.empty_cache()
+    return results
+
+
+def _export(config: str, out_dir: str, *overrides: str) -> None:
+    argv = ["-c", config, "-o", f"Global.output_dir={out_dir}"]
     for o in overrides:
         argv += ["-o", o]
     export.main(argv)
@@ -250,12 +370,12 @@ def _profile(fn) -> str:
             + "; ".join(f"{100 * t / busy:.1f}% {name[:60]}" for name, t in top))
 
 
-def _serve(model_dir: str, requests) -> tuple[np.ndarray, list, int, str]:
+def _serve(model_dir: str, name: str, requests, kernel) -> tuple[np.ndarray, list, int, str]:
     """Warm-up plus the requests, then one profiled request. Returns the
     requests' logits, per-request (preprocess, predict, postprocess) seconds,
-    the kernel launches of warm-up plus requests, and the profile line."""
-    pred = Predictor(model_dir, name=MODEL_NAME, transform=NORMALIZE, device="cuda")
-    talking_heads_softmax.launches = 0
+    the launches of `kernel` over warm-up plus requests, and the profile line."""
+    pred = Predictor(model_dir, name=name, transform=NORMALIZE, device="cuda")
+    kernel.launches = 0
     pred(requests[0])  # warm-up
     logits, stages = [], []
     for imgs in requests:
@@ -270,7 +390,7 @@ def _serve(model_dir: str, requests) -> tuple[np.ndarray, list, int, str]:
         check(bool(np.isfinite(out).all()), "non-finite logits")
         check(len(res) == BATCH and len(res[0]["class_ids"]) == 5, "top-5 results")
         logits.append(out)
-    launches = talking_heads_softmax.launches
+    launches = kernel.launches
     prof = _profile(lambda: pred(requests[0]))
     del pred
     torch.cuda.empty_cache()
@@ -287,22 +407,31 @@ def _report(tag: str, stages: list, prof: str) -> None:
     log(f"[profile] {tag}: {prof}")
 
 
-def phase_serve() -> int:
+def _requests() -> list:
     rng = np.random.RandomState(0)
-    requests = [list(rng.randint(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8))
-                for _ in range(REQUESTS)]
+    return [list(rng.randint(0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)) for _ in range(REQUESTS)]
+
+
+def _cosines(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def phase_serve() -> int:
+    requests = _requests()
     forwards = 1 + REQUESTS
     with tempfile.TemporaryDirectory() as tmp:
         # bf16 (the config's FP16 block, softmax_dtype bfloat16): kernel vs plain
-        _export(os.path.join(tmp, "bf16"))
-        _export(os.path.join(tmp, "bf16_einsum"), "Model.th_impl=einsum")
-        fused, st_f, launches, prof_f = _serve(os.path.join(tmp, "bf16"), requests)
+        _export(CONFIG, os.path.join(tmp, "bf16"))
+        _export(CONFIG, os.path.join(tmp, "bf16_einsum"), "Model.th_impl=einsum")
+        fused, st_f, launches, prof_f = _serve(os.path.join(tmp, "bf16"), MODEL_NAME, requests,
+                                               talking_heads_softmax)
         check(launches == DEPTH * forwards, f"kernel launched {launches}x, want {DEPTH * forwards}")
-        plain, st_p, plain_launches, prof_p = _serve(os.path.join(tmp, "bf16_einsum"), requests)
+        plain, st_p, plain_launches, prof_p = _serve(os.path.join(tmp, "bf16_einsum"), MODEL_NAME,
+                                                     requests, talking_heads_softmax)
         check(plain_launches == 0, f"plain path launched the kernel {plain_launches}x")
         _report("bf16 kernel path", st_f, prof_f)
         _report("bf16 plain path ", st_p, prof_p)
-        cos = (fused * plain).sum(-1) / (np.linalg.norm(fused, axis=-1) * np.linalg.norm(plain, axis=-1))
+        cos = _cosines(fused, plain)
         log(f"[serve] bf16 kernel vs plain: min cosine {cos.min():.6f}, "
             f"max abs diff {np.abs(fused - plain).max():.4g}, launches {launches} "
             f"= {DEPTH} x {forwards} forwards")
@@ -313,10 +442,12 @@ def phase_serve() -> int:
 
         # f32 (FP16.enable=False; TF32 off above): the same f32 math with the
         # head mixes summed in another order (an H100 gave 6e-8): atol 1e-5
-        _export(os.path.join(tmp, "f32"), "FP16.enable=False")
-        _export(os.path.join(tmp, "f32_einsum"), "FP16.enable=False", "Model.th_impl=einsum")
-        fused32, st_f32, launches32, prof_f32 = _serve(os.path.join(tmp, "f32"), requests)
-        plain32, st_p32, _, prof_p32 = _serve(os.path.join(tmp, "f32_einsum"), requests)
+        _export(CONFIG, os.path.join(tmp, "f32"), "FP16.enable=False")
+        _export(CONFIG, os.path.join(tmp, "f32_einsum"), "FP16.enable=False", "Model.th_impl=einsum")
+        fused32, st_f32, launches32, prof_f32 = _serve(os.path.join(tmp, "f32"), MODEL_NAME,
+                                                       requests, talking_heads_softmax)
+        plain32, st_p32, _, prof_p32 = _serve(os.path.join(tmp, "f32_einsum"), MODEL_NAME,
+                                              requests, talking_heads_softmax)
         check(launches32 == DEPTH * forwards, f"f32: kernel launched {launches32}x")
         _report("f32 kernel path ", st_f32, prof_f32)
         _report("f32 plain path  ", st_p32, prof_p32)
@@ -325,13 +456,85 @@ def phase_serve() -> int:
     return launches
 
 
-def _train_config(out_dir: str, *overrides: str):
+def phase_serve_swin() -> int:
+    """Swin-T at 224 through export and Predictor: the kernel path
+    (attn_impl=fused) against the einsum path on the same weights (Global.seed)."""
+    requests = _requests()
+    forwards = 1 + REQUESTS
+    fused_cfg = "Model.attn_impl=fused"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (tag, overrides): the config's bf16 with softmax_dtype bfloat16; the
+        # same at softmax_dtype float32; and f32 throughout (FP16.enable=False)
+        for tag, overrides in (("bf16", ()), ("bf16, softmax f32", ("Model.softmax_dtype=float32",)),
+                               ("f32", ("FP16.enable=False",))):
+            d_k, d_p = os.path.join(tmp, "kernel"), os.path.join(tmp, "plain")
+            _export(SWIN_CONFIG, d_k, fused_cfg, *overrides)
+            _export(SWIN_CONFIG, d_p, *overrides)
+            fused, st_f, launches, prof_f = _serve(d_k, SWIN_NAME, requests, fused_window_attention)
+            check(launches == SWIN_BLOCKS * forwards,
+                  f"Swin-T {tag}: kernel launched {launches}x, want {SWIN_BLOCKS * forwards}")
+            plain, st_p, plain_launches, prof_p = _serve(d_p, SWIN_NAME, requests,
+                                                         fused_window_attention)
+            check(plain_launches == 0, f"Swin-T {tag}: the einsum path launched the kernel")
+            _report(f"Swin-T {tag} kernel path", st_f, prof_f)
+            _report(f"Swin-T {tag} einsum path", st_p, prof_p)
+            cos = _cosines(fused, plain)
+            log(f"[serve] Swin-T {tag} kernel vs einsum: min cosine {cos.min():.7f}, max abs diff "
+                f"{np.abs(fused - plain).max():.4g} (largest logit {np.abs(plain).max():.4g}), "
+                f"launches {launches} = {SWIN_BLOCKS} x {forwards} forwards")
+            out[tag] = (cos.min(), np.abs(fused - plain).max(), launches)
+    # bf16: the einsum path rounds the scores, the bias and mask sums and the
+    # softmax to bf16 (2^-8 relative each) where the kernel keeps them in f32,
+    # over 12 blocks; the tiny CPU model gave cosine >= 0.99998
+    # (tests/test_torch_swin.py): 1e-3 of cosine leaves room for 12 blocks,
+    # and a wrong mask or bias drops far below it
+    check(out["bf16"][0] >= 0.999, f"Swin-T bf16 logits disagree: {out['bf16']}")
+    # softmax f32: both paths compute f32 scores and softmax and round p to bf16
+    # once; they differ only by where the scale and that rounding fall
+    check(out["bf16, softmax f32"][0] >= 0.9999,
+          f"Swin-T bf16 (softmax f32) logits disagree: {out['bf16, softmax f32']}")
+    # f32 throughout: sums in another order (as tests/test_window_attention_kernel.py:129)
+    check(out["f32"][1] <= 1e-4, f"Swin-T f32 logits disagree: {out['f32']}")
+    return out["bf16"][2]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """One model's train phase: the kernel path timed against a plain path."""
+
+    tag: str
+    config: str
+    batch: int
+    blocks: int  # launches of each kernel per step
+    n_fed: int  # parameters whose gradients the backward kernel gives
+    fwd: Callable  # the forward kernel's wrapper (its `.launches`)
+    bwd: Callable
+    kernel: tuple  # overrides of the kernel path
+    plain: tuple  # overrides of the plain path timed beside it
+    grad_plain: tuple  # overrides of the path the first-step gradients are held against
+    kernel_fed: Callable[[str], bool]  # the parameters whose gradients the backward kernel gives
+
+
+CAIT_TRAIN = TrainSpec("CaiT-S24", CONFIG, TRAIN_BATCH, DEPTH, 2 * DEPTH, talking_heads_softmax,
+                       talking_heads_softmax_bwd, (), ("Model.th_impl=einsum",),
+                       ("Model.th_impl=einsum",),
+                       lambda n: n.endswith("proj_l") or n.endswith("proj_w"))
+# the fused path's softmax is f32 whatever softmax_dtype says; its gradients
+# are held against the einsum path at softmax_dtype float32
+SWIN_TRAIN = TrainSpec("Swin-T", SWIN_CONFIG, SWIN_TRAIN_BATCH, SWIN_BLOCKS, SWIN_BLOCKS,
+                       fused_window_attention, fused_window_attention_bwd, ("Model.attn_impl=fused",), (),
+                       ("Model.softmax_dtype=float32",),
+                       lambda n: n.endswith("relative_position_bias_table"))
+
+
+def _train_config(spec: TrainSpec, out_dir: str, *overrides: str):
     """The in1k config with synthetic images (ImageNet is not on the card's
-    machine; the config's own transforms stay), batch 64, TRAIN_STEPS steps."""
-    config = cfg_util.get_config(CONFIG, overrides=[
+    machine; the config's own transforms stay), the spec's batch, TRAIN_STEPS steps."""
+    config = cfg_util.get_config(spec.config, overrides=[
         f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
         "Global.print_batch_step=1", "Global.eval_during_train=False", *overrides])
-    for mode, size, bs in (("Train", 1024, TRAIN_BATCH), ("Eval", 256, 128)):
+    for mode, size, bs in (("Train", 1024, spec.batch), ("Eval", 256, 128)):
         dl = config["DataLoader"][mode]
         dl["dataset"] = {"name": "SyntheticDataset", "size": size, "image_size": IMG,
                          "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
@@ -364,7 +567,7 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
     return (torch.dot(a, b) / (a.norm() * b.norm())).item()
 
 
-def _step_report(tag: str, engine: Engine) -> dict:
+def _step_report(tag: str, engine: Engine, batch_size: int) -> dict:
     hist = engine.train_loop.history
     check(len(hist) == TRAIN_STEPS, f"{tag}: {len(hist)} logged steps, want {TRAIN_STEPS}")
     losses = [h["loss"] for h in hist]
@@ -373,111 +576,141 @@ def _step_report(tag: str, engine: Engine) -> dict:
     batch = float(np.median([h["batch_cost"] for h in steady]))
     reader = float(np.median([h["reader_cost"] for h in steady]))
     rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": batch,
-           "images_per_s": TRAIN_BATCH / batch, "reader_s_median": reader,
+           "images_per_s": batch_size / batch, "reader_s_median": reader,
            "reader_share": reader / batch,
            "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"[train] {tag}: losses " + ", ".join(f"{v:.5f}" for v in losses) + "; "
-        + ", ".join(f"{k}={v:.6g}" for k, v in rep.items()))
+    log(f"[train] {tag}: losses " + ", ".join(f"{v:.5f}" for v in losses) + "; " + _fmt(rep))
     return rep
 
 
-def phase_train() -> dict:
+def _same_start(a: Engine, b: Engine) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(),
+                                                 b.model.state_dict().values()))
+
+
+def phase_train(spec: TrainSpec) -> dict:
     out = {}
+    fwd, bwd, n = spec.fwd, spec.bwd, spec.blocks
     with tempfile.TemporaryDirectory() as tmp:
-        cfg_k = _train_config(os.path.join(tmp, "kernel"))
-        cfg_p = _train_config(os.path.join(tmp, "plain"), "Model.th_impl=einsum")
+        cfg_k = _train_config(spec, os.path.join(tmp, "kernel"), *spec.kernel)
         e_k = Engine(cfg_k, mode="train", device="cuda")
-        e_p = Engine(cfg_p, mode="train", device="cuda")
-        check(all(torch.equal(a, b) for a, b in zip(e_k.model.state_dict().values(),
-                                                    e_p.model.state_dict().values())),
-              "the two paths start from different weights")
+        e_p = Engine(_train_config(spec, os.path.join(tmp, "plain"), *spec.plain),
+                     mode="train", device="cuda")
+        check(_same_start(e_k, e_p), f"{spec.tag}: the two paths start from different weights")
+        e_g = e_p
+        if spec.grad_plain != spec.plain:
+            e_g = Engine(_train_config(spec, os.path.join(tmp, "grad"), *spec.grad_plain),
+                         mode="train", device="cuda")
+            check(_same_start(e_k, e_g), f"{spec.tag}: the gradient reference starts elsewhere")
 
         # the first step's gradients, kernel path against plain path
         batch = _first_batch(cfg_k)
-        talking_heads_softmax.launches = talking_heads_softmax_bwd.launches = 0
+        fwd.launches = bwd.launches = 0
         loss_k, g_k = _grads(e_k, batch)
-        check((talking_heads_softmax.launches, talking_heads_softmax_bwd.launches) == (DEPTH, DEPTH),
-              f"one step launched {talking_heads_softmax.launches} forward and "
-              f"{talking_heads_softmax_bwd.launches} backward kernels, want {DEPTH} each")
-        loss_p, g_p = _grads(e_p, batch)
-        check(talking_heads_softmax.launches == DEPTH, "the plain path launched a kernel")
+        check((fwd.launches, bwd.launches) == (n, n),
+              f"{spec.tag}: one step launched {fwd.launches} forward and "
+              f"{bwd.launches} backward kernels, want {n} each")
+        loss_p, g_p = _grads(e_g, batch)
+        check(fwd.launches == n, f"{spec.tag}: the plain path launched a kernel")
+        if e_g is not e_p:
+            e_g.close()
+            del e_g
         cos_all = _cos(torch.cat([g.flatten() for g in g_k.values()]),
                        torch.cat([g.flatten() for g in g_p.values()]))
-        cos_th = {n: _cos(g_k[n].flatten(), g_p[n].flatten()) for n in g_k
-                  if n.endswith("proj_l") or n.endswith("proj_w")}
-        worst = min(cos_th, key=cos_th.get)
-        log(f"[train] first-step gradients, kernel vs plain path: loss {loss_k:.6f} vs "
-            f"{loss_p:.6f}, cosine overall {cos_all:.7f}, lowest proj_l/proj_w cosine "
-            f"{cos_th[worst]:.7f} ({worst}), {len(cos_th)} checked")
-        # both paths compute the head mixes and softmax in f32 and round to bf16
-        # once, so they differ only where a bf16 rounding of p or ds flips (and in
+        cos_kf = {name: _cos(g_k[name].flatten(), g_p[name].flatten()) for name in g_k
+                  if spec.kernel_fed(name)}
+        worst = min(cos_kf, key=cos_kf.get)
+        log(f"[train] {spec.tag} first-step gradients, kernel vs plain path: loss {loss_k:.6f} vs "
+            f"{loss_p:.6f}, cosine overall {cos_all:.7f}, lowest kernel-fed cosine "
+            f"{cos_kf[worst]:.7f} ({worst}), {len(cos_kf)} checked")
+        check(len(cos_kf) == spec.n_fed,
+              f"{spec.tag}: {len(cos_kf)} kernel-fed parameters, want {spec.n_fed}")
+        # both paths compute the softmax in f32 and round p (and ds) to bf16
+        # once, so they differ only where such a rounding flips (and in
         # summation order): 1e-3 of cosine leaves room for that, and a wrong
-        # gradient term (a transposed mix, a missing softmax term) falls far below
-        check(cos_all >= 0.999 and cos_th[worst] >= 0.999,
-              f"gradients disagree: overall {cos_all}, {worst} {cos_th[worst]}")
-        check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), f"losses disagree: {loss_k} vs {loss_p}")
+        # gradient term (a transposed mix, a missing softmax term, a dbias
+        # summed over the wrong groups) falls far below
+        check(cos_all >= 0.999 and cos_kf[worst] >= 0.999,
+              f"{spec.tag}: gradients disagree: overall {cos_all}, {worst} {cos_kf[worst]}")
+        check(abs(loss_k - loss_p) <= 1e-3 * abs(loss_p),
+              f"{spec.tag}: losses disagree: {loss_k} vs {loss_p}")
         out["grad_cos"] = cos_all
-        out["grad_cos_min_th"] = cos_th[worst]
+        out["grad_cos_min_kernel_fed"] = cos_kf[worst]
+        del g_k, g_p
 
-        # the main path: 8 steps through the kernels, as tools/train runs them
-        talking_heads_softmax.launches = talking_heads_softmax_bwd.launches = 0
+        # the main path: TRAIN_STEPS steps through the kernels, as tools/train runs them
+        fwd.launches = bwd.launches = 0
         torch.cuda.reset_peak_memory_stats()
         e_k.train()
-        out["launches_fwd"] = talking_heads_softmax.launches
-        out["launches_bwd"] = talking_heads_softmax_bwd.launches
-        check(out["launches_fwd"] == DEPTH * TRAIN_STEPS and out["launches_bwd"] == DEPTH * TRAIN_STEPS,
-              f"{TRAIN_STEPS} steps launched {out['launches_fwd']} forward and "
-              f"{out['launches_bwd']} backward kernels, want {DEPTH * TRAIN_STEPS} each")
-        out["kernel"] = _step_report("bf16 kernel path", e_k)
+        out["launches_fwd"], out["launches_bwd"] = fwd.launches, bwd.launches
+        check(out["launches_fwd"] == n * TRAIN_STEPS and out["launches_bwd"] == n * TRAIN_STEPS,
+              f"{spec.tag}: {TRAIN_STEPS} steps launched {out['launches_fwd']} forward and "
+              f"{out['launches_bwd']} backward kernels, want {n * TRAIN_STEPS} each")
+        out["kernel"] = _step_report(f"{spec.tag} bf16 kernel path", e_k, spec.batch)
         ckpt = os.path.join(tmp, "kernel", "latest.pt")
         check(os.path.exists(ckpt) and e_k.state.step == TRAIN_STEPS, "no checkpoint after training")
 
         torch.cuda.reset_peak_memory_stats()
         e_p.train()
-        check(talking_heads_softmax.launches == DEPTH * TRAIN_STEPS, "the plain path launched a kernel")
-        out["plain"] = _step_report("bf16 plain path ", e_p)
+        check(fwd.launches == n * TRAIN_STEPS, f"{spec.tag}: the plain path launched a kernel")
+        out["plain"] = _step_report(f"{spec.tag} bf16 plain path ", e_p, spec.batch)
 
-        log(f"[profile] train step, bf16 kernel path: "
+        log(f"[profile] {spec.tag} train step, bf16 kernel path: "
             f"{_profile(lambda: float(e_k.train_step(e_k.state, batch)['loss']))}")
-        log(f"[profile] train step, bf16 plain path:  "
+        log(f"[profile] {spec.tag} train step, bf16 plain path:  "
             f"{_profile(lambda: float(e_p.train_step(e_p.state, batch)['loss']))}")
-        del e_k, e_p, g_k, g_p
+        del e_k, e_p
         torch.cuda.empty_cache()
 
         # resume: one more step from the checkpoint, then evaluate it
-        e_r = Engine(_train_config(os.path.join(tmp, "resume"), f"Global.checkpoint={ckpt}",
+        e_r = Engine(_train_config(spec, os.path.join(tmp, "resume"), *spec.kernel,
+                                   f"Global.checkpoint={ckpt}",
                                    f"Global.max_train_step={TRAIN_STEPS + 1}"),
                      mode="train", device="cuda")
         e_r.train()
         hist = e_r.train_loop.history
         check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1 and np.isfinite(hist[0]["loss"]),
-              f"resume from step {TRAIN_STEPS}: history {hist}")
-        log(f"[train] resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
+              f"{spec.tag}: resume from step {TRAIN_STEPS}: history {hist}")
+        log(f"[train] {spec.tag} resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
             f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
         del e_r
-        e_v = Engine(_train_config(os.path.join(tmp, "eval"), f"Global.checkpoint={ckpt}"),
+        e_v = Engine(_train_config(spec, os.path.join(tmp, "eval"), *spec.kernel,
+                                   f"Global.checkpoint={ckpt}"),
                      mode="eval", device="cuda")
         top1 = e_v.eval()
         m = e_v.eval_loop.last_metrics
         check(set(m) == {"top1", "top5"} and all(0.0 <= v <= 1.0 for v in m.values())
-              and top1 == m["top1"], f"eval metrics {m}")
-        log(f"[eval] {len(e_v.eval_dataloader.dataset)} synthetic images: top1 {m['top1']:.5f}, "
-            f"top5 {m['top5']:.5f}")
+              and top1 == m["top1"], f"{spec.tag}: eval metrics {m}")
+        log(f"[eval] {spec.tag}: {len(e_v.eval_dataloader.dataset)} synthetic images: "
+            f"top1 {m['top1']:.5f}, top5 {m['top5']:.5f}")
         del e_v
         torch.cuda.empty_cache()
+    return out
+
+
+def _timed(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
-    phase_build()
-    fwd = phase_kernel()
-    bwd = phase_kernel_bwd()
-    serve_launches = phase_serve()
+    _timed("build", phase_build)
+    fwd = _timed("kernel", phase_kernel)
+    bwd = _timed("kernel-bwd", phase_kernel_bwd)
+    wfwd = _timed("wattn", phase_wattn)
+    wbwd = _timed("wattn-bwd", phase_wattn_bwd)
+    serve_launches = _timed("serve CaiT-S24", phase_serve)
     log(f"[serve] forward kernel launches on the serving path: {serve_launches}")
-    train = phase_train()
+    swin_serve_launches = _timed("serve Swin-T", phase_serve_swin)
+    log(f"[serve] window-attention launches on Swin-T's serving path: {swin_serve_launches}")
+    train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)
+    swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
+    wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [
@@ -491,6 +724,16 @@ def main() -> None:
          "replaces": "passl_tpu/ops/pallas/talking_heads.py:87",
          "launches": train["launches_bwd"], "max_abs_err": b_rec["max_abs_err"],
          "ms": b_rec["ms"], "plain_ms": b_rec["plain_ms"]},
+        {"name": "fused_window_attention", "route": "cuda",
+         "source": "passl_tpu_torch/csrc/window_attention.cu",
+         "replaces": "passl_tpu/ops/pallas/window_attention.py:92",
+         "launches": swin["launches_fwd"], "max_abs_err": wf_rec["max_abs_err"],
+         "ms": wf_rec["ms"], "plain_ms": wf_rec["plain_ms"]},
+        {"name": "fused_window_attention_bwd", "route": "cuda",
+         "source": "passl_tpu_torch/csrc/window_attention_bwd.cu",
+         "replaces": "passl_tpu/ops/pallas/window_attention.py:104",
+         "launches": swin["launches_bwd"], "max_abs_err": wb_rec["max_abs_err"],
+         "ms": wb_rec["ms"], "plain_ms": wb_rec["plain_ms"]},
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -29,33 +29,37 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Linear):
-    """flax `Dense(dtype=...)`: f32 weight `[out, in]`, computed at `dtype`."""
+    """flax `Dense(dtype=..., use_bias=...)`: f32 weight `[out, in]`, computed at `dtype`."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
-                 kernel_init: Callable = tinit.lecun_normal_):
+                 kernel_init: Callable = tinit.lecun_normal_, use_bias: bool = True):
         self.compute_dtype = dtype
         self.kernel_init = kernel_init
-        super().__init__(in_features, out_features)
+        super().__init__(in_features, out_features, bias=use_bias)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.kernel_init(self.weight, generator=generator)
-        tinit.zeros_(self.bias)
+        if self.bias is not None:
+            tinit.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class Conv2d(nn.Conv2d):
-    """flax `Conv(padding="VALID", dtype=...)` over NCHW: weight OIHW, f32."""
+    """flax `Conv(padding="VALID", dtype=...)` over NCHW: weight OIHW, f32;
+    xavier-uniform kernels unless `kernel_init` says otherwise."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_init: Callable = tinit.xavier_uniform_):
         self.compute_dtype = dtype
+        self.kernel_init = kernel_init
         super().__init__(in_channels, out_channels, kernel_size, stride, padding=0)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        tinit.xavier_uniform_(self.weight, generator=generator)
+        self.kernel_init(self.weight, generator=generator)
         tinit.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -101,7 +101,7 @@ def load() -> ctypes.CDLL:
     build_info.update(path=str(lib_path), commands=cmds, log=log,
                       seconds=time.perf_counter() - t0, built=bool(cmds))
 
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.passl_talking_heads_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.passl_talking_heads_fwd.restype = i32
     lib.passl_talking_heads_max_k.argtypes = []
@@ -111,4 +111,10 @@ def load() -> ctypes.CDLL:
     lib.passl_talking_heads_bwd.restype = i32
     lib.passl_talking_heads_bwd_blocks.argtypes = [i32, i32]
     lib.passl_talking_heads_bwd_blocks.restype = ctypes.c_longlong
+    lib.passl_window_attention_fwd.argtypes = [vp] * 6 + [i32] * 5 + [f32, i32, i32, vp]
+    lib.passl_window_attention_fwd.restype = i32
+    lib.passl_window_attention_bwd.argtypes = [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp]
+    lib.passl_window_attention_bwd.restype = i32
+    lib.passl_window_attention_bwd_blocks.argtypes = [i32, i32]
+    lib.passl_window_attention_bwd_blocks.restype = ctypes.c_longlong
     return lib

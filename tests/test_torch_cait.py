@@ -233,3 +233,38 @@ def test_policy_from_config_matches_jax(fp16):
 
     want = jnp.dtype(JaxPolicy.from_config(fp16).compute_dtype).name
     assert dtype_name(Policy.from_config(fp16).compute_dtype) == want
+
+
+def test_dense_without_bias_matches_flax():
+    """`Dense(use_bias=False)`, as Swin's PatchMerging.reduction: no bias
+    parameter, flax's output; the default keeps its zero-initialised bias."""
+    x = np.random.RandomState(0).randn(3, 5, 16).astype(np.float32)
+    fm = fnn.Dense(8, use_bias=False, dtype=jnp.bfloat16)
+    params = jax.device_get(fm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+    pm = port_layers.Dense(16, 8, dtype=torch.bfloat16, use_bias=False)
+    assert pm.bias is None and set(pm.state_dict()) == {"weight"}
+    tinit.init_module(pm, torch.Generator().manual_seed(0))  # reset_parameters takes no bias
+    pm.load_state_dict(flax_to_torch(params, pm))
+    want = np.asarray(fm.apply({"params": params}, jnp.asarray(x)).astype(jnp.float32))
+    got = pm(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    # one bf16 product of the same bf16-rounded operands, summed in f32 on both sides
+    np.testing.assert_allclose(got.float().detach().numpy(), want, rtol=2**-7, atol=1e-2)
+    dense = tinit.init_module(port_layers.Dense(16, 8), torch.Generator().manual_seed(0))
+    assert dense.bias is not None and torch.all(dense.bias == 0)
+
+
+def test_conv_kernel_init_is_pluggable_and_defaults_to_xavier():
+    """`Conv2d(kernel_init=...)`, as Swin's patch conv (trunc_normal 0.02);
+    CaiT's PatchEmbed keeps xavier-uniform."""
+    def weight(**kw):
+        conv = port_layers.Conv2d(3, 96, 4, 4, **kw)
+        return tinit.init_module(conv, torch.Generator().manual_seed(0)).weight.detach()
+
+    trunc = functools.partial(tinit.trunc_normal_, std=0.02)
+    w = weight(kernel_init=trunc)
+    assert abs(w.std().item() - 0.02) < 0.002 and torch.equal(w, weight(kernel_init=trunc))
+    xavier = weight()
+    bound = (6.0 / (3 * 16 + 96 * 16)) ** 0.5  # fans of an OIHW kernel [96, 3, 4, 4]
+    assert xavier.abs().max().item() <= bound and xavier.abs().max().item() > 0.9 * bound
+    assert port_layers.PatchEmbed(16, 64).proj.kernel_init is tinit.xavier_uniform_
