@@ -6,7 +6,12 @@ Run from the repo root:  python3 chip_smoke.py
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
    one nvcc per source, side by side.
 3. Holds the talking-heads forward kernel against its plain PyTorch version
-   on the card at the shapes CaiT uses, and times both.
+   on the card at the shapes CaiT uses, and times both. Every timed kernel
+   is timed in turns with its plain version and, where one PyTorch call
+   computes the same function, that call (`library_ms`), and set against its
+   bound: the larger of its bytes (each input read once, each output
+   written once) over 3.35 TB/s and its products' flops over the card's
+   peak for the inputs' type (989 TFLOP/s bf16/f16, 67 TFLOP/s f32).
 4. Holds the talking-heads backward kernel against its plain version at the
    same shapes (ds, dproj_l, dproj_w), checks that two launches give bitwise
    equal weight gradients, and times both at CaiT-S24's shapes.
@@ -16,7 +21,18 @@ Run from the repo root:  python3 chip_smoke.py
    in bf16 and f32, and times both at Swin-T's stage 1 with 128 images.
 6. The same for the window-attention backward kernel (dq, dk, dv, and dbias
    within 1e-4 of its largest entry), checking that two launches are bitwise
-   equal.
+   equal. Both window phases time F.scaled_dot_product_attention beside the
+   kernels, with q as [B/nWm, nWm, h, L, d] and bias + mask as a float
+   attn_mask [nWm, h, L, L].
+6b. Holds the flash-attention forward kernel (out, m, l) and its dK/dV and
+   dQ backward kernels against their plain versions at the ViT family's
+   shapes (ViT-B/16 at 32 and 128 images in bf16 and f32, ViT-B/32, ViT-B/16
+   at 384, ViT-L/16, ViT-H/14, ViT-g/14, MoCo v3 ViT-S, 65 tokens, 4,096
+   tokens, one f16 case), with q, k, v read as views of one qkv tensor as
+   the model hands them, checks that both backward kernels are bitwise the
+   same on a second launch, and times them at ViT-B/16's 128 images against
+   their plain versions and F.scaled_dot_product_attention (forward;
+   backward; forward + backward through autograd).
 7. Serves CaiT-S24 at 224 through the user's entry points: the export CLI's
    `main` on configs/classification/cait_s24_224_in1k.yaml (random weights
    from Global.seed), then `Predictor(device="cuda")` answering 4 requests of
@@ -46,8 +62,18 @@ Run from the repo root:  python3 chip_smoke.py
    forward and 12 backward launches per step, first-step gradients against
    the einsum path at softmax_dtype=float32 (overall and for each of the 12
    relative_position_bias_tables), resume, eval.
-11. Prints the card line, a JSON line of kernel results, and last the
-   contract line {"ok": true, "device": {...}}.
+11. Serves ViT-B/16 at 224 from configs/classification/vit_base_patch16_224_in1k.yaml
+   with Model.attn_impl=flash as Swin-T is served: 12 flash forward
+   launches per forward, and the same weights through the einsum path in
+   bf16 (cosine >= 0.999), at softmax_dtype=float32 (>= 0.9999) and in f32.
+12. Trains ViT-B/16 at 224 the same way, full width and depth, bf16, batch
+   128 (4,096 over the 32 cards of the recipe), drop path 0.1 and EMA, 8
+   steps, with Model.attn_impl=flash: 12 forward, 12 dK/dV and 12 dQ
+   launches per step, first-step gradients against the einsum path at
+   softmax_dtype=float32 (overall and for each of the 12 attn.qkv.weight),
+   resume, eval.
+13. Prints the card line, a JSON line of the seven kernels' results, and
+   last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
 then. It imports nothing of JAX.
@@ -60,15 +86,20 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from passl_tpu_torch.data import build_dataloader, to_device
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
+from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
+                                           flash_attention_dkv, flash_attention_dkv_ref,
+                                           flash_attention_dq, flash_attention_dq_ref,
+                                           flash_attention_fwd, flash_attention_fwd_ref)
 from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax, talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
@@ -124,7 +155,30 @@ WATTN_SHAPES = [
 ]
 WATTN_TIMED = (4096, 3, 98, 32, 32)  # Swin-T stage 1, 128 images: timed in bf16 and f32
 DBIAS_TOL = 1e-4  # dbias: f32 sums over B groups in another order, of the largest entry
+VIT_CONFIG = os.path.join(REPO, "configs", "classification", "vit_base_patch16_224_in1k.yaml")
+VIT_NAME = "ViT_base_patch16_224"
+VIT_BLOCKS = 12  # ViT-B/16's attention blocks: one launch of each flash kernel per forward
+VIT_TRAIN_BATCH = 128  # the recipe's per-card batch: 4,096 over 32 cards
+# flash attention (n, l, h, d) and type: ViT-B/16 at 224 with 32 and 128
+# images; ViT-B/32 (50 tokens, below the resolver's 65); ViT-B/16 at 384;
+# ViT-L/16; ViT-H/14 (d = 80); ViT-g/14 (d = 104); MoCo v3 ViT-S (d = 32);
+# the resolver's shortest flash sequence; 4,096 tokens, where `auto` turns
+# to flash; ViT-L/16 in f16
+FLASH_TIMED = (128, 197, 12, 64)  # ViT-B/16 training: timed in bf16 and f32
+FLASH_CASES = [
+    ((32, 197, 12, 64), torch.bfloat16), ((32, 197, 12, 64), torch.float32),
+    (FLASH_TIMED, torch.bfloat16), (FLASH_TIMED, torch.float32),
+    ((32, 50, 12, 64), torch.bfloat16), ((8, 577, 12, 64), torch.bfloat16),
+    ((16, 197, 16, 64), torch.bfloat16), ((4, 257, 16, 80), torch.bfloat16),
+    ((2, 257, 16, 104), torch.bfloat16), ((16, 197, 12, 32), torch.bfloat16),
+    ((2, 65, 2, 32), torch.float32), ((2, 4096, 8, 64), torch.bfloat16),
+    ((16, 197, 16, 64), torch.float16),
+]
+# m and l: f32 sums and maxima of the same products taken in another order
+STAT_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# H100 SXM dense peaks: tensor cores for bf16/f16, the CUDA cores for f32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -186,18 +240,33 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _time_pair(kernel, plain, nbytes: int) -> dict:
-    """Kernel and plain version timed in turns (plain, kernel, kernel, plain),
-    with the kernel's rate against the card's bytes bound."""
-    plain_a, kern_a, kern_b, plain_b = (_time_ms(f) for f in (plain, kernel, kernel, plain))
-    rec = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2}
+def _bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: bytes over the memory rate or the
+    products' flops over the peak for the inputs' type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _time_pair(kernel, plain, nbytes: int, flops: float, dtype: torch.dtype,
+               library: Optional[Callable] = None) -> dict:
+    """Kernel, plain version and (where there is one) the PyTorch call that
+    computes the same function, timed in turns (plain, kernel, library,
+    library, kernel, plain), with the kernel's rate and its bound."""
+    fns = (plain, kernel, library, library, kernel, plain)
+    plain_a, kern_a, lib_a, lib_b, kern_b, plain_b = (
+        _time_ms(f) if f is not None else None for f in fns)
+    rec = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+           "library_ms": None if library is None else (lib_a + lib_b) / 2,
+           **_bound(nbytes, flops, dtype)}
     rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
-    rec["bound_share"] = rec["kernel_GBps"] * 1e9 / HBM_BYTES_PER_S
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
 def _fmt(rec: dict) -> str:
-    return ", ".join(f"{k}={v:.6g}" for k, v in rec.items())
+    return ", ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in rec.items())
 
 
 def phase_kernel() -> dict:
@@ -214,9 +283,12 @@ def phase_kernel() -> dict:
             torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
             rec = {"max_abs_err": err, "tol": tol}
             if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
+                # read s, write p; the two head mixes' products, 2 h flops per
+                # score each (no PyTorch call computes this function)
                 rec.update(_time_pair(lambda: talking_heads_softmax(s, wl, ww),
                                       lambda: talking_heads_softmax_ref(s, wl, ww),
-                                      2 * s.numel() * s.element_size()))
+                                      2 * s.numel() * s.element_size(),
+                                      4 * shape[1] * s.numel(), dtype))
             results[(shape, dtype)] = rec
             log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
     return results
@@ -253,9 +325,13 @@ def phase_kernel_bwd() -> dict:
         check(all(torch.equal(a, b) for a, b in zip((ds, dwl, dww), again)),
               f"backward at {shape} {dtype}: two launches differ")
         if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
+            # read s and dp, write ds; the products of the recomputed first
+            # mix, the two mixes' backward and the two weight gradients, 2 h
+            # flops per score each
             rec.update(_time_pair(lambda: talking_heads_softmax_bwd(s, dp, wl, ww),
                                   lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww),
-                                  3 * s.numel() * s.element_size()))  # read s and dp, write ds
+                                  3 * s.numel() * s.element_size(),
+                                  10 * shape[1] * s.numel(), dtype))
         results[(shape, dtype)] = rec
         log(f"[kernel-bwd] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
             ", repeatable bitwise")
@@ -280,6 +356,31 @@ def _wattn_inputs(shape, dtype, seed):
     return q, k, v, do, bias, mask
 
 
+def _wattn_sdpa(q, k, v, bias, mask, do=None):
+    """The window function as one F.scaled_dot_product_attention call: q, k, v
+    as [B/nWm, nWm, h, L, d] and bias + mask as a float attn_mask [nWm, h, L,
+    L] at q's type. Returns the call, or with `do` the call's backward (dq, dk,
+    dv and the mask's gradient) on a graph kept for repeated timing."""
+    b, h, l, d = q.shape
+    n_mask = mask.shape[0]
+    view = (b // n_mask, n_mask, h, l, d)
+    q5, k5, v5 = (t.detach().reshape(view).clone() for t in (q, k, v))
+    attn_mask = (bias[None] + mask[:, None]).to(q.dtype)
+    if do is None:
+        return lambda: F.scaled_dot_product_attention(q5, k5, v5, attn_mask=attn_mask)
+    leaves = [t.requires_grad_() for t in (q5, k5, v5, attn_mask)]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+    return lambda: torch.autograd.grad(out, leaves, do.view(view), retain_graph=True)
+
+
+def _wattn_bytes_flops(q, bias, mask, tensors: int, products: int) -> tuple[int, int]:
+    """`tensors` [B, h, L, d] tensors moved once plus the f32 bias and mask
+    read once; `products` L x L x d products (2 flops each) per (group, head)."""
+    b, h, l, d = q.shape
+    extra = (bias.numel() + (0 if mask is None else mask.numel())) * 4
+    return tensors * q.numel() * q.element_size() + extra, products * 2 * b * h * l * l * d
+
+
 def _wattn_cases():
     return [(shape, dtype) for shape in WATTN_SHAPES for dtype in (torch.bfloat16, torch.float32)]
 
@@ -296,10 +397,11 @@ def phase_wattn() -> dict:
             tol = TOL[dtype]
             torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
             rec = {"max_abs_err": (out.float() - ref.float()).abs().max().item(), "tol": tol}
-            if shape == WATTN_TIMED:  # read q, k, v and write out once
+            if shape == WATTN_TIMED:  # read q, k, v and write out once; q k^T and p v
                 rec.update(_time_pair(lambda: fused_window_attention(q, k, v, bias, mask),
                                       lambda: window_attention_ref(q, k, v, bias, mask),
-                                      4 * q.numel() * q.element_size()))
+                                      *_wattn_bytes_flops(q, bias, mask, 4, 2), dtype,
+                                      library=_wattn_sdpa(q, k, v, bias, mask)))
             results[(shape, dtype)] = rec
             log(f"[wattn] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
             del q, k, v, bias, mask, out, ref
@@ -327,16 +429,155 @@ def phase_wattn_bwd() -> dict:
         again = fused_window_attention_bwd(q, k, v, bias, mask, do)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"wattn-bwd at {shape} {dtype}: two launches differ")
-        if shape == WATTN_TIMED:  # read q, k, v, do and write dq, dk, dv once
+        if shape == WATTN_TIMED:
+            # read q, k, v, do and write dq, dk, dv once (and dbias, h L^2 f32,
+            # counted with the bias); recompute q k^T, then p^T do, do v^T,
+            # ds k and ds^T q
             rec.update(_time_pair(lambda: fused_window_attention_bwd(q, k, v, bias, mask, do),
                                   lambda: window_attention_bwd_ref(q, k, v, bias, mask, do),
-                                  7 * q.numel() * q.element_size()))
+                                  *_wattn_bytes_flops(q, bias, mask, 7, 5), dtype,
+                                  library=_wattn_sdpa(q, k, v, bias, mask, do)))
         results[(shape, dtype)] = rec
         log(f"[wattn-bwd] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
             ", repeatable bitwise")
         del q, k, v, bias, mask, do, got, want, again
     torch.cuda.empty_cache()
     return results
+
+
+def _flash_inputs(shape, dtype, seed):
+    """q, k, v [n, l, h, d] as views of one qkv tensor [n, l, 3, h, d] (the
+    layout ViT's Attention hands the kernels) and do [n, l, h, d], drawn on the
+    card from a seeded generator."""
+    n, l, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(n, l, 3, h, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(n, l, h, d, generator=gen, device="cuda").to(dtype)
+    return (*qkv.unbind(2), do)
+
+
+def _flash_bytes_flops(shape, dtype, tensors: int, stats: int, products: int) -> tuple[int, int]:
+    """`tensors` [n, l, h, d] tensors and `stats` f32 [n, h, l] row vectors
+    moved once; `products` l x l x d products (2 flops each) per (image, head)."""
+    n, l, h, d = shape
+    esize = torch.empty((), dtype=dtype).element_size()
+    return (tensors * n * l * h * d * esize + stats * n * h * l * 4,
+            products * 2 * n * h * l * l * d)
+
+
+def _sdpa(q, k, v, scale):
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          scale=scale)
+
+
+def phase_flash() -> dict:
+    results = {}
+    with torch.inference_mode():
+        for i, (shape, dtype) in enumerate(FLASH_CASES):
+            q, k, v, _ = _flash_inputs(shape, dtype, seed=500 + i)
+            scale = shape[-1] ** -0.5
+            o, m, lsum = flash_attention_fwd(q, k, v, scale)
+            o_ref, m_ref, l_ref = flash_attention_fwd_ref(q, k, v, scale)
+            torch.cuda.synchronize()
+            check(o.dtype == dtype and o.shape == shape, f"flash output {o.dtype} {tuple(o.shape)}")
+            tol = TOL[dtype]
+            torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(m, m_ref, atol=STAT_TOL, rtol=STAT_TOL, msg="m")
+            torch.testing.assert_close(lsum, l_ref, atol=STAT_TOL, rtol=STAT_TOL, msg="l")
+            rec = {"max_abs_err": (o.float() - o_ref.float()).abs().max().item(), "tol": tol}
+            if shape == FLASH_TIMED:  # read q, k, v, write o, m, l; q k^T and p v
+                rec.update(_time_pair(lambda: flash_attention_fwd(q, k, v, scale),
+                                      lambda: flash_attention_fwd_ref(q, k, v, scale),
+                                      *_flash_bytes_flops(shape, dtype, 4, 2, 2), dtype,
+                                      library=lambda: _sdpa(q, k, v, scale)))
+            results[(shape, dtype)] = rec
+            log(f"[flash] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
+            del q, k, v, o, m, lsum, o_ref, m_ref, l_ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def _autograd_ms(shape, dtype, seed) -> dict:
+    """Forward + backward through autograd, from qkv to its gradient: the
+    port's flash_attention (one forward and two backward launches) against
+    F.scaled_dot_product_attention on the same views."""
+    n, l, h, d = shape
+    scale = d ** -0.5
+    q, k, v, do = _flash_inputs(shape, dtype, seed)
+    qkv = torch.stack((q, k, v), dim=2).detach().requires_grad_()
+    do_flat = do.reshape(n, l, h * d)
+
+    def port():
+        qkv.grad = None
+        flash_attention(*qkv.unbind(2), scale).backward(do_flat)
+
+    def library():
+        qkv.grad = None
+        _sdpa(*qkv.unbind(2), scale).backward(do.transpose(1, 2))
+
+    lib_a, port_a, port_b, lib_b = (_time_ms(f, iters=20) for f in (library, port, port, library))
+    return {"autograd_ms": (port_a + port_b) / 2, "library_autograd_ms": (lib_a + lib_b) / 2}
+
+
+def phase_flash_bwd() -> dict:
+    results = {}
+    for i, (shape, dtype) in enumerate(FLASH_CASES):
+        q, k, v, do = _flash_inputs(shape, dtype, seed=600 + i)
+        scale = shape[-1] ** -0.5
+        with torch.no_grad():
+            o, m, lsum = flash_attention_fwd_ref(q, k, v, scale)
+            di = flash_attention_di(o, do)
+            got = (*flash_attention_dkv(q, k, v, do, m, lsum, di, scale),
+                   flash_attention_dq(q, k, v, do, m, lsum, di, scale))
+            want = (*flash_attention_dkv_ref(q, k, v, do, m, lsum, di, scale),
+                    flash_attention_dq_ref(q, k, v, do, m, lsum, di, scale))
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            rec = {"tol": tol}
+            for name, g, w in zip(("dk", "dv", "dq"), got, want):
+                check(g.dtype == dtype and g.shape == shape, f"flash-bwd {name} {g.dtype} {tuple(g.shape)}")
+                torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol, msg=name)
+                rec[f"{name}_max_abs_err"] = (g.float() - w.float()).abs().max().item()
+            again = (*flash_attention_dkv(q, k, v, do, m, lsum, di, scale),
+                     flash_attention_dq(q, k, v, do, m, lsum, di, scale))
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash-bwd at {shape} {dtype}: two launches differ")
+            if shape == FLASH_TIMED:
+                # dK/dV reads q, k, v, do and m, l, di and writes dk, dv; it
+                # recomputes q k^T, then p^T do, do v^T and ds^T q. dQ reads
+                # the same and writes dq: q k^T, do v^T and ds k. The library
+                # yardstick is SDPA's whole backward (dq, dk and dv in one call)
+                lib = _sdpa_backward(q, k, v, do, scale)
+                rec["dkv"] = _time_pair(
+                    lambda: flash_attention_dkv(q, k, v, do, m, lsum, di, scale),
+                    lambda: flash_attention_dkv_ref(q, k, v, do, m, lsum, di, scale),
+                    *_flash_bytes_flops(shape, dtype, 6, 3, 4), dtype, library=lib)
+                rec["dq"] = _time_pair(
+                    lambda: flash_attention_dq(q, k, v, do, m, lsum, di, scale),
+                    lambda: flash_attention_dq_ref(q, k, v, do, m, lsum, di, scale),
+                    *_flash_bytes_flops(shape, dtype, 5, 3, 3), dtype, library=lib)
+                del lib
+        if shape == FLASH_TIMED:
+            rec.update(_autograd_ms(shape, dtype, seed=700 + i))
+        results[(shape, dtype)] = rec
+        log(f"[flash-bwd] {shape} {str(dtype).removeprefix('torch.')}: "
+            + _fmt({k: v for k, v in rec.items() if k not in ("dkv", "dq")}) + ", repeatable bitwise")
+        for name in ("dkv", "dq"):
+            if name in rec:
+                log(f"[flash-bwd] {shape} {str(dtype).removeprefix('torch.')} {name} timed: "
+                    f"{_fmt(rec[name])}")
+        del q, k, v, do, o, m, lsum, di, got, want, again
+    torch.cuda.empty_cache()
+    return results
+
+
+def _sdpa_backward(q, k, v, do, scale):
+    """SDPA's backward alone (dq, dk, dv), on a graph kept for repeated timing."""
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = _sdpa(*leaves, scale)
+    grad = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
 
 
 def _export(config: str, out_dir: str, *overrides: str) -> None:
@@ -456,34 +697,44 @@ def phase_serve() -> int:
     return launches
 
 
+def _serve_kernel_vs_einsum(tag: str, config: str, name: str, blocks: int, kernel,
+                            kernel_cfg: str) -> dict:
+    """A model through export and Predictor on its kernel path (`kernel_cfg`)
+    against its einsum path on the same weights (Global.seed), in the config's
+    bf16 with its softmax_dtype, at softmax_dtype=float32, and in f32
+    throughout (FP16.enable=False, softmax_dtype=float32). Returns
+    {precision: (min cosine, max abs diff, launches)}."""
+    requests = _requests()
+    forwards = 1 + REQUESTS
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (the in1k configs set softmax_dtype: bfloat16, so f32 throughout
+        # sets it to float32 as well)
+        for prec, overrides in (("bf16", ()), ("bf16, softmax f32", ("Model.softmax_dtype=float32",)),
+                                ("f32", ("FP16.enable=False", "Model.softmax_dtype=float32"))):
+            d_k, d_p = os.path.join(tmp, "kernel"), os.path.join(tmp, "plain")
+            _export(config, d_k, kernel_cfg, *overrides)
+            _export(config, d_p, *overrides)
+            fused, st_f, launches, prof_f = _serve(d_k, name, requests, kernel)
+            check(launches == blocks * forwards,
+                  f"{tag} {prec}: kernel launched {launches}x, want {blocks * forwards}")
+            plain, st_p, plain_launches, prof_p = _serve(d_p, name, requests, kernel)
+            check(plain_launches == 0, f"{tag} {prec}: the einsum path launched the kernel")
+            _report(f"{tag} {prec} kernel path", st_f, prof_f)
+            _report(f"{tag} {prec} einsum path", st_p, prof_p)
+            cos = _cosines(fused, plain)
+            log(f"[serve] {tag} {prec} kernel vs einsum: min cosine {cos.min():.7f}, max abs diff "
+                f"{np.abs(fused - plain).max():.4g} (largest logit {np.abs(plain).max():.4g}), "
+                f"launches {launches} = {blocks} x {forwards} forwards")
+            out[prec] = (cos.min(), np.abs(fused - plain).max(), launches)
+    return out
+
+
 def phase_serve_swin() -> int:
     """Swin-T at 224 through export and Predictor: the kernel path
     (attn_impl=fused) against the einsum path on the same weights (Global.seed)."""
-    requests = _requests()
-    forwards = 1 + REQUESTS
-    fused_cfg = "Model.attn_impl=fused"
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        # (tag, overrides): the config's bf16 with softmax_dtype bfloat16; the
-        # same at softmax_dtype float32; and f32 throughout (FP16.enable=False)
-        for tag, overrides in (("bf16", ()), ("bf16, softmax f32", ("Model.softmax_dtype=float32",)),
-                               ("f32", ("FP16.enable=False",))):
-            d_k, d_p = os.path.join(tmp, "kernel"), os.path.join(tmp, "plain")
-            _export(SWIN_CONFIG, d_k, fused_cfg, *overrides)
-            _export(SWIN_CONFIG, d_p, *overrides)
-            fused, st_f, launches, prof_f = _serve(d_k, SWIN_NAME, requests, fused_window_attention)
-            check(launches == SWIN_BLOCKS * forwards,
-                  f"Swin-T {tag}: kernel launched {launches}x, want {SWIN_BLOCKS * forwards}")
-            plain, st_p, plain_launches, prof_p = _serve(d_p, SWIN_NAME, requests,
-                                                         fused_window_attention)
-            check(plain_launches == 0, f"Swin-T {tag}: the einsum path launched the kernel")
-            _report(f"Swin-T {tag} kernel path", st_f, prof_f)
-            _report(f"Swin-T {tag} einsum path", st_p, prof_p)
-            cos = _cosines(fused, plain)
-            log(f"[serve] Swin-T {tag} kernel vs einsum: min cosine {cos.min():.7f}, max abs diff "
-                f"{np.abs(fused - plain).max():.4g} (largest logit {np.abs(plain).max():.4g}), "
-                f"launches {launches} = {SWIN_BLOCKS} x {forwards} forwards")
-            out[tag] = (cos.min(), np.abs(fused - plain).max(), launches)
+    out = _serve_kernel_vs_einsum("Swin-T", SWIN_CONFIG, SWIN_NAME, SWIN_BLOCKS,
+                                  fused_window_attention, "Model.attn_impl=fused")
     # bf16: the einsum path rounds the scores, the bias and mask sums and the
     # softmax to bf16 (2^-8 relative each) where the kernel keeps them in f32,
     # over 12 blocks; the tiny CPU model gave cosine >= 0.99998
@@ -499,6 +750,25 @@ def phase_serve_swin() -> int:
     return out["bf16"][2]
 
 
+def phase_serve_vit() -> int:
+    """ViT-B/16 at 224 through export and Predictor: the flash kernel path
+    (attn_impl=flash) against the einsum path on the same weights."""
+    out = _serve_kernel_vs_einsum("ViT-B/16", VIT_CONFIG, VIT_NAME, VIT_BLOCKS, flash_attention,
+                                  "Model.attn_impl=flash")
+    # bf16: the einsum path rounds the scores and the softmax to bf16 (the
+    # config's softmax_dtype) where the kernel keeps them in f32, over 12
+    # blocks; a wrong mask of the ragged last tile or a wrong scale drops far
+    # below 1e-3 of cosine
+    check(out["bf16"][0] >= 0.999, f"ViT-B/16 bf16 logits disagree: {out['bf16']}")
+    # softmax f32: both compute f32 scores and softmax; they differ by where
+    # the scale, p's rounding to bf16 and the normalisation fall
+    check(out["bf16, softmax f32"][0] >= 0.9999,
+          f"ViT-B/16 bf16 (softmax f32) logits disagree: {out['bf16, softmax f32']}")
+    # f32 throughout: the same function with sums in another order
+    check(out["f32"][1] <= 1e-4, f"ViT-B/16 f32 logits disagree: {out['f32']}")
+    return out["bf16"][2]
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainSpec:
     """One model's train phase: the kernel path timed against a plain path."""
@@ -507,25 +777,32 @@ class TrainSpec:
     config: str
     batch: int
     blocks: int  # launches of each kernel per step
-    n_fed: int  # parameters whose gradients the backward kernel gives
+    n_fed: int  # parameters whose gradients the backward kernels give
     fwd: Callable  # the forward kernel's wrapper (its `.launches`)
-    bwd: Callable
+    bwd: tuple  # the backward kernels' wrappers, each launched `blocks` times a step
     kernel: tuple  # overrides of the kernel path
     plain: tuple  # overrides of the plain path timed beside it
     grad_plain: tuple  # overrides of the path the first-step gradients are held against
-    kernel_fed: Callable[[str], bool]  # the parameters whose gradients the backward kernel gives
+    kernel_fed: Callable[[str], bool]  # the parameters whose gradients the backward kernels give
 
 
 CAIT_TRAIN = TrainSpec("CaiT-S24", CONFIG, TRAIN_BATCH, DEPTH, 2 * DEPTH, talking_heads_softmax,
-                       talking_heads_softmax_bwd, (), ("Model.th_impl=einsum",),
+                       (talking_heads_softmax_bwd,), (), ("Model.th_impl=einsum",),
                        ("Model.th_impl=einsum",),
                        lambda n: n.endswith("proj_l") or n.endswith("proj_w"))
 # the fused path's softmax is f32 whatever softmax_dtype says; its gradients
 # are held against the einsum path at softmax_dtype float32
 SWIN_TRAIN = TrainSpec("Swin-T", SWIN_CONFIG, SWIN_TRAIN_BATCH, SWIN_BLOCKS, SWIN_BLOCKS,
-                       fused_window_attention, fused_window_attention_bwd, ("Model.attn_impl=fused",), (),
-                       ("Model.softmax_dtype=float32",),
+                       fused_window_attention, (fused_window_attention_bwd,),
+                       ("Model.attn_impl=fused",), (), ("Model.softmax_dtype=float32",),
                        lambda n: n.endswith("relative_position_bias_table"))
+# the flash path's softmax is f32 whatever softmax_dtype says; its gradients
+# are held against the einsum path at softmax_dtype float32. The dK/dV and dQ
+# kernels feed every attn.qkv.weight
+VIT_TRAIN = TrainSpec("ViT-B/16", VIT_CONFIG, VIT_TRAIN_BATCH, VIT_BLOCKS, VIT_BLOCKS,
+                      flash_attention, (flash_attention_dkv, flash_attention_dq),
+                      ("Model.attn_impl=flash",), (), ("Model.softmax_dtype=float32",),
+                      lambda n: n.endswith("attn.qkv.weight"))
 
 
 def _train_config(spec: TrainSpec, out_dir: str, *overrides: str):
@@ -588,9 +865,18 @@ def _same_start(a: Engine, b: Engine) -> bool:
                                                  b.model.state_dict().values()))
 
 
+def _launches(spec: TrainSpec) -> dict:
+    return {w.__name__: w.launches for w in (spec.fwd, *spec.bwd)}
+
+
+def _reset_launches(spec: TrainSpec) -> None:
+    for w in (spec.fwd, *spec.bwd):
+        w.launches = 0
+
+
 def phase_train(spec: TrainSpec) -> dict:
     out = {}
-    fwd, bwd, n = spec.fwd, spec.bwd, spec.blocks
+    n = spec.blocks
     with tempfile.TemporaryDirectory() as tmp:
         cfg_k = _train_config(spec, os.path.join(tmp, "kernel"), *spec.kernel)
         e_k = Engine(cfg_k, mode="train", device="cuda")
@@ -605,13 +891,13 @@ def phase_train(spec: TrainSpec) -> dict:
 
         # the first step's gradients, kernel path against plain path
         batch = _first_batch(cfg_k)
-        fwd.launches = bwd.launches = 0
+        _reset_launches(spec)
         loss_k, g_k = _grads(e_k, batch)
-        check((fwd.launches, bwd.launches) == (n, n),
-              f"{spec.tag}: one step launched {fwd.launches} forward and "
-              f"{bwd.launches} backward kernels, want {n} each")
+        one_step = _launches(spec)
+        check(set(one_step.values()) == {n},
+              f"{spec.tag}: one step launched {one_step}, want {n} of each kernel")
         loss_p, g_p = _grads(e_g, batch)
-        check(fwd.launches == n, f"{spec.tag}: the plain path launched a kernel")
+        check(_launches(spec) == one_step, f"{spec.tag}: the plain path launched a kernel")
         if e_g is not e_p:
             e_g.close()
             del e_g
@@ -639,20 +925,21 @@ def phase_train(spec: TrainSpec) -> dict:
         del g_k, g_p
 
         # the main path: TRAIN_STEPS steps through the kernels, as tools/train runs them
-        fwd.launches = bwd.launches = 0
+        _reset_launches(spec)
         torch.cuda.reset_peak_memory_stats()
         e_k.train()
-        out["launches_fwd"], out["launches_bwd"] = fwd.launches, bwd.launches
-        check(out["launches_fwd"] == n * TRAIN_STEPS and out["launches_bwd"] == n * TRAIN_STEPS,
-              f"{spec.tag}: {TRAIN_STEPS} steps launched {out['launches_fwd']} forward and "
-              f"{out['launches_bwd']} backward kernels, want {n * TRAIN_STEPS} each")
+        out["launches"] = _launches(spec)
+        check(set(out["launches"].values()) == {n * TRAIN_STEPS},
+              f"{spec.tag}: {TRAIN_STEPS} steps launched {out['launches']}, "
+              f"want {n * TRAIN_STEPS} of each kernel")
+        log(f"[train] {spec.tag}: launches over {TRAIN_STEPS} steps {out['launches']}")
         out["kernel"] = _step_report(f"{spec.tag} bf16 kernel path", e_k, spec.batch)
         ckpt = os.path.join(tmp, "kernel", "latest.pt")
         check(os.path.exists(ckpt) and e_k.state.step == TRAIN_STEPS, "no checkpoint after training")
 
         torch.cuda.reset_peak_memory_stats()
         e_p.train()
-        check(fwd.launches == n * TRAIN_STEPS, f"{spec.tag}: the plain path launched a kernel")
+        check(_launches(spec) == out["launches"], f"{spec.tag}: the plain path launched a kernel")
         out["plain"] = _step_report(f"{spec.tag} bf16 plain path ", e_p, spec.batch)
 
         log(f"[profile] {spec.tag} train step, bf16 kernel path: "
@@ -679,10 +966,12 @@ def phase_train(spec: TrainSpec) -> dict:
                      mode="eval", device="cuda")
         top1 = e_v.eval()
         m = e_v.eval_loop.last_metrics
-        check(set(m) == {"top1", "top5"} and all(0.0 <= v <= 1.0 for v in m.values())
+        # a config with an EMA block is also evaluated on the EMA weights
+        keys = {"top1", "top5"} | ({"top1_ema", "top5_ema"} if e_v.eval_metrics_step_ema else set())
+        check(set(m) == keys and all(0.0 <= v <= 1.0 for v in m.values())
               and top1 == m["top1"], f"{spec.tag}: eval metrics {m}")
         log(f"[eval] {spec.tag}: {len(e_v.eval_dataloader.dataset)} synthetic images: "
-            f"top1 {m['top1']:.5f}, top5 {m['top5']:.5f}")
+            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(m.items())))
         del e_v
         torch.cuda.empty_cache()
     return out
@@ -695,6 +984,16 @@ def _timed(name: str, fn, *args):
     return out
 
 
+_LIB = "jax/experimental/pallas/ops/tpu/flash_attention.py"  # the JAX library (jax 0.9.0)
+
+
+def _kernel_row(name: str, source: str, replaces: str, launches: int, err: float,
+                rec: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": f"passl_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            **{k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
@@ -703,37 +1002,44 @@ def main() -> None:
     bwd = _timed("kernel-bwd", phase_kernel_bwd)
     wfwd = _timed("wattn", phase_wattn)
     wbwd = _timed("wattn-bwd", phase_wattn_bwd)
+    ffwd = _timed("flash", phase_flash)
+    fbwd = _timed("flash-bwd", phase_flash_bwd)
     serve_launches = _timed("serve CaiT-S24", phase_serve)
     log(f"[serve] forward kernel launches on the serving path: {serve_launches}")
     swin_serve_launches = _timed("serve Swin-T", phase_serve_swin)
     log(f"[serve] window-attention launches on Swin-T's serving path: {swin_serve_launches}")
-    train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)
-    swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)
+    vit_serve_launches = _timed("serve ViT-B/16", phase_serve_vit)
+    log(f"[serve] flash forward launches on ViT-B/16's serving path: {vit_serve_launches}")
+    train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)["launches"]
+    swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)["launches"]
+    vit = _timed("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]
+    ff_rec, fb_rec = ffwd[(FLASH_TIMED, torch.bfloat16)], fbwd[(FLASH_TIMED, torch.bfloat16)]
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": [
-        {"name": "talking_heads_softmax", "route": "cuda",
-         "source": "passl_tpu_torch/csrc/talking_heads.cu",
-         "replaces": "passl_tpu/ops/pallas/talking_heads.py:79",
-         "launches": train["launches_fwd"], "max_abs_err": f_rec["max_abs_err"],
-         "ms": f_rec["ms"], "plain_ms": f_rec["plain_ms"]},
-        {"name": "talking_heads_softmax_bwd", "route": "cuda",
-         "source": "passl_tpu_torch/csrc/talking_heads_bwd.cu",
-         "replaces": "passl_tpu/ops/pallas/talking_heads.py:87",
-         "launches": train["launches_bwd"], "max_abs_err": b_rec["max_abs_err"],
-         "ms": b_rec["ms"], "plain_ms": b_rec["plain_ms"]},
-        {"name": "fused_window_attention", "route": "cuda",
-         "source": "passl_tpu_torch/csrc/window_attention.cu",
-         "replaces": "passl_tpu/ops/pallas/window_attention.py:92",
-         "launches": swin["launches_fwd"], "max_abs_err": wf_rec["max_abs_err"],
-         "ms": wf_rec["ms"], "plain_ms": wf_rec["plain_ms"]},
-        {"name": "fused_window_attention_bwd", "route": "cuda",
-         "source": "passl_tpu_torch/csrc/window_attention_bwd.cu",
-         "replaces": "passl_tpu/ops/pallas/window_attention.py:104",
-         "launches": swin["launches_bwd"], "max_abs_err": wb_rec["max_abs_err"],
-         "ms": wb_rec["ms"], "plain_ms": wb_rec["plain_ms"]},
+        _kernel_row("talking_heads_softmax", "talking_heads.cu",
+                    "passl_tpu/ops/pallas/talking_heads.py:79", train["talking_heads_softmax"],
+                    f_rec["max_abs_err"], f_rec),
+        _kernel_row("talking_heads_softmax_bwd", "talking_heads_bwd.cu",
+                    "passl_tpu/ops/pallas/talking_heads.py:87",
+                    train["talking_heads_softmax_bwd"], b_rec["max_abs_err"], b_rec),
+        _kernel_row("fused_window_attention", "window_attention.cu",
+                    "passl_tpu/ops/pallas/window_attention.py:92", swin["fused_window_attention"],
+                    wf_rec["max_abs_err"], wf_rec),
+        _kernel_row("fused_window_attention_bwd", "window_attention_bwd.cu",
+                    "passl_tpu/ops/pallas/window_attention.py:104",
+                    swin["fused_window_attention_bwd"], wb_rec["max_abs_err"], wb_rec),
+        _kernel_row("flash_attention", "flash_attention.cu",
+                    f"{_LIB}:331 (via passl_tpu/ops/attention.py:111)", vit["flash_attention"],
+                    ff_rec["max_abs_err"], ff_rec),
+        _kernel_row("flash_attention_dkv", "flash_attention_bwd.cu",
+                    f"{_LIB}:796 (via passl_tpu/ops/attention.py:111)", vit["flash_attention_dkv"],
+                    max(fb_rec["dk_max_abs_err"], fb_rec["dv_max_abs_err"]), fb_rec["dkv"]),
+        _kernel_row("flash_attention_dq", "flash_attention_bwd.cu",
+                    f"{_LIB}:1146 (via passl_tpu/ops/attention.py:111)", vit["flash_attention_dq"],
+                    fb_rec["dq_max_abs_err"], fb_rec["dq"]),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Mirrors `passl_tpu`'s layout (`core/`, `nn/`, `ops/`, `models/`, `engine/`,
 `tools/`, `utils/`), with the hand-written CUDA kernels under `csrc/`. It
-imports torch and never jax; host code of `passl_tpu` that is free of jax
-(config parsing, the registry, image transforms) is imported from there.
+imports torch and never jax, and nothing of `passl_tpu`: the host code it
+shares with the JAX package (config parsing, the registry, datasets, image
+transforms, samplers and the loader) is its own copy, under `utils/` and `data/`.
 """
 
 __version__ = "0.1.0"

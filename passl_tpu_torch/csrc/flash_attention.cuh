@@ -1,0 +1,272 @@
+// Helpers shared by the flash-attention forward and backward kernels
+// (flash_attention.cu, flash_attention_bwd.cu), which have two paths.
+//
+// Every kernel works on 64-row tiles of q, k, v (and do) for one (image,
+// head) and on the [64, 64] tiles of scores between a q tile and a k tile.
+// q, k and v are [n, L, h, d] at the caller's strides (s_b, s_l, s_h; the
+// last dim contiguous): views of the projection qkv [n, L, 3, h, d] are
+// read in place. Rows past L are staged as zeros and their scores masked,
+// so the ragged last tile needs no padding in device memory.
+//
+// f32 inputs: the CUDA-core path. Tiles are staged in shared memory as f32
+// with rows of DP + 1 floats (DP = d padded to 16 RD; the odd stride puts
+// the 16 rows a half warp reads at one column on 16 different banks). The
+// block's 256 threads form the same 16 x 16 grid as the window-attention
+// kernels (window_attention.cuh): thread (ty, tx) owns rows ty + 16 a and
+// columns tx + 16 c of every product tile, summed in registers over shared
+// operands by `gemm`. The row statistics of a score tile reduce over the 16
+// threads of a half warp.
+//
+// bf16 / f16 inputs: the tensor-core path. Tiles stay at the input type in
+// shared memory, rows padded by 8 elements (16 bytes, so that the eight
+// rows a fragment load touches fall on different banks); a B operand that
+// a product reads down its rows comes through `ldmatrix.trans`. The
+// block's 4 warps each own 16 rows of a tile, and every product is
+// `mma.sync.m16n8k16` with f32 accumulation: a 16 x 8 score chunk's
+// accumulator holds, for thread (g = lane / 4, t = lane % 4), rows g and
+// g + 8 and columns 2t, 2t + 1, which is also the layout of an A operand
+// of the next product, so p and ds go from one product to the next in
+// registers, rounded to the input type as the library rounds them. Row
+// statistics reduce over the 4 threads of a quad.
+#pragma once
+
+#include "window_attention.cuh"  // gemm, zero, half_warp_reduce, round_to, to_f32 / from_f32
+
+namespace passl_fa {
+
+using passl_wa::from_f32;
+using passl_wa::gemm;
+using passl_wa::half_warp_reduce;
+using passl_wa::kGrid;
+using passl_wa::kThreads;
+using passl_wa::round_to;
+using passl_wa::to_f32;
+using passl_wa::zero;
+
+constexpr int kTile = 64;            // rows of every q and k tile
+constexpr int kRows = kTile / kGrid; // rows of a tile per thread: 4
+constexpr int kLdP = kTile + 1;      // row stride of a [64, 64] score tile in shared memory
+
+// Rows row0 .. row0 + 63 of one (image, head) of an [n, L, h, d] tensor (src
+// points at its row 0; rows are row_stride apart) into dst [64, DP + 1] as
+// f32: zeros past row L and past column d.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src,
+                                           int64_t row_stride, int row0, int L, int d) {
+  for (int idx = threadIdx.x; idx < kTile * DP; idx += blockDim.x) {
+    const int i = idx / DP;
+    const int c = idx - i * DP;
+    const int r = row0 + i;
+    dst[i * (DP + 1) + c] = (r < L && c < d) ? to_f32(src[(int64_t)r * row_stride + c]) : 0.f;
+  }
+}
+
+// s[a][c] = (q_i . k_j in f32) * scale for this thread's rows i = ty + 16 a
+// of the staged q tile Qs and columns j = tx + 16 c of the staged k tile Ks,
+// as the library kernels take it: the f32 product, then the scale.
+template <int LD>
+__device__ __forceinline__ void scores(float (&s)[kRows][kRows], const float* Qs, const float* Ks,
+                                       int d, float scale, int ty, int tx) {
+  zero(s);
+  gemm<kRows, kRows, false, float>(s, Qs, LD, 1, Ks, 1, LD, d, ty, tx);
+#pragma unroll
+  for (int a = 0; a < kRows; ++a) {
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) s[a][c] = __fmul_rn(s[a][c], scale);
+  }
+}
+
+// Columns of the padded [64, d] tiles per thread (d <= 16 RD), 0 when d > 128
+// or d is not a multiple of 8.
+inline int cols_per_thread(int d) {
+  if (d <= 0 || d % 8 != 0) return 0;
+  if (d <= 32) return 2;
+  if (d <= 64) return 4;
+  if (d <= 96) return 6;
+  if (d <= 128) return 8;
+  return 0;
+}
+
+// Shared memory of a kernel with `tiles` staged [64, DP + 1] tiles, one
+// [64, 65] score tile and `extra` floats.
+inline size_t smem_bytes(int tiles, int rd, int extra) {
+  return ((size_t)tiles * kTile * (kGrid * rd + 1) + (size_t)kTile * kLdP + extra) * sizeof(float);
+}
+
+// ------------------------------------------------------------ tensor cores
+
+constexpr int kWarps = 4;                // tensor-core kernels: 4 warps of 16 rows each
+constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kChunks = kTile / 8;       // 8-column chunks of a [16, 64] score tile per warp
+
+// The padded head dim of the tensor-core kernels (a multiple of 16), 0 when
+// d > 128 or d is not a multiple of 8.
+inline int mma_head_dim(int d) {
+  if (d <= 0 || d % 8 != 0 || d > 128) return 0;
+  if (d <= 32) return 32;
+  if (d <= 64) return 64;
+  if (d <= 96) return 96;
+  return 128;
+}
+
+// Shared memory of a tensor-core kernel: `tiles` [64, DP + 8] tiles at 2
+// bytes and `extra` floats.
+inline size_t mma_smem_bytes(int tiles, int dp, int extra) {
+  return (size_t)tiles * kTile * (dp + 8) * 2 + (size_t)extra * 4;
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2], __nv_bfloat16) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2], __half) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b for one m16n8k16 step at T's precision
+template <typename T>
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  mma_16816(c, a, b, T());
+}
+
+// (x, y) rounded to T and packed, x in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float x, float y);
+template <>
+__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float x, float y) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack<__half>(float x, float y) {
+  __half2 v = __floats2half2_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A operand (16 x 16) at (row0, col0) of a row-major tile s with row stride ld.
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* s, int ld, int row0, int col0,
+                                       int lane) {
+  const T* p = s + (row0 + (lane >> 2)) * ld + col0 + 2 * (lane & 3);
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// The B operand (16 x 8: k0.. along k, n0.. along n) of a product whose B is
+// held transposed, s[n][k], with row stride ld.
+template <typename T>
+__device__ __forceinline__ void load_b(uint32_t (&b)[2], const T* s, int ld, int n0, int k0,
+                                       int lane) {
+  const T* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// The B operand (16 x 8) at (k0, n0) of a product whose B is held as it
+// stands, s[k][n], row-major with row stride ld (16-byte aligned rows):
+// lanes 0-15 give the addresses of rows k0 .. k0 + 15, and `.trans` hands
+// each thread the column entries the fragment wants.
+template <typename T>
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[2], const T* s, int ld, int k0, int n0,
+                                             int lane) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(s + (k0 + (lane & 15)) * ld + n0));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// The A operand over 16 columns (chunks 2 kk and 2 kk + 1) of a [16, 64]
+// accumulator tile, rounded to T.
+template <typename T>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[kChunks][4], int kk) {
+  a[0] = pack<T>(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack<T>(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack<T>(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// c = a tile's 16 rows (row0..) times the 64 rows of a tile held as B^T,
+// both [.., DP] row-major with row stride LD: c[j] is columns 8 j .. 8 j + 7.
+template <typename T, int DP, int LD>
+__device__ __forceinline__ void tile_product(float (&c)[kChunks][4], const T* a_tile, int row0,
+                                             const T* bt_tile, int lane) {
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a[4];
+    load_a(a, a_tile, LD, row0, kk * 16, lane);
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      uint32_t b[2];
+      load_b(b, bt_tile, LD, j * 8, kk * 16, lane);
+      mma<T>(c[j], a, b);
+    }
+  }
+}
+
+// acc[jd] += (c at T) times a [64, DP] tile (row stride DP + 8): the
+// [16, 64] accumulator tile c as the A operand over the tile's 64 rows.
+template <typename T, int DP>
+__device__ __forceinline__ void acc_product(float (&acc)[DP / 8][4], const float (&c)[kChunks][4],
+                                            const T* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t a[4];
+    acc_to_a<T>(a, c, kk);
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; ++jd) {
+      uint32_t b[2];
+      load_b_trans(b, tile, DP + 8, kk * 16, jd * 8, lane);
+      mma<T>(acc[jd], a, b);
+    }
+  }
+}
+
+// Rows row0 .. row0 + 63 of one (image, head) of an [n, L, h, d] tensor at
+// type T (src points at its row 0, rows row_stride apart, 16-byte aligned)
+// into dst [64, DP + 8] at T, in 16-byte vectors: zeros past L and d.
+template <typename T, int DP>
+__device__ __forceinline__ void stage_rows16(T* dst, const T* __restrict__ src, int64_t row_stride,
+                                             int row0, int L, int d) {
+  constexpr int V = DP / 8;
+  for (int idx = threadIdx.x; idx < kTile * V; idx += blockDim.x) {
+    const int i = idx / V;
+    const int c = (idx - i * V) * 8;
+    const int r = row0 + i;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < L && c < d) val = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + i * (DP + 8) + c) = val;
+  }
+}
+
+// max (or sum) of v over the 4 threads of a quad, in a fixed order
+template <bool IS_MAX>
+__device__ __forceinline__ float quad_reduce(float v) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = IS_MAX ? fmaxf(v, o) : v + o;
+  }
+  return v;
+}
+
+}  // namespace passl_fa

@@ -1,0 +1,532 @@
+// Flash-attention backward for Hopper (sm_90a): two kernels, dK/dV and dQ.
+//
+// Replace the two backward Pallas kernels of the JAX library flash attention
+// (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel`) that the
+// custom VJP of passl_tpu/ops/attention.py:111 runs. Both recompute, from
+// q, k and the forward's f32 row statistics m and l, the library's
+//
+//     p  = exp(s - m) * (1 / l),          s = (q k^T in f32) * scale
+//     ds = ((do v^T in f32) - di) * p * scale,   di = sum_d o * do (f32, given)
+//
+// and then dK/dV: dv = (p at do's type)^T do, dk = (ds at do's type)^T q;
+// dQ: dq = (ds at k's type) k; f32 sums, outputs at q's type. Rows past L
+// are masked in the kernels, as the library's segment ids mask its padding.
+//
+// Bound. Device-memory bytes at ViT-B/16 with 128 images (n = 128, L = 197,
+// h = 12, d = 64, bf16), each input read once and each output written once:
+// dK/dV reads q, k, v, do and m, l, di and writes dk, dv, 236 MB, 70 us at
+// 3.35 TB/s; dQ reads the same and writes dq, 197 MB, 59 us. The work is
+// 8 and 6 n h L^2 d flops (31 and 23 us on the tensor cores at
+// 989 TFLOP/s), so both are bound by bytes; in f32 (0.46 and 0.34 ms at the
+// CUDA cores' 67 TFLOP/s) by the products.
+//
+// Design. dK/dV: one block per (image x head, 64-row k tile), k and v
+// staged once; a loop over 64-row q tiles stages q and do, recomputes the
+// [64, 64] p tile, adds p^T do to dv, forms ds from do v^T, and adds
+// ds^T q to dk, in registers. dQ: one block per (image x head, 64-row q
+// tile), q and do staged once; a loop over k tiles stages k and v and adds
+// ds k to dq. Every block owns its outputs: there are no atomics, so both
+// are bitwise the same on every launch. The split into two kernels is the
+// library's: it spends the recompute of p twice to need no reduction
+// across blocks. bf16 / f16 run the products on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation, p and ds kept in registers between
+// products; see flash_attention.cuh), f32 on the CUDA cores from shared
+// memory. What bounds the tensor-core kernels now: synchronous staging of
+// each tile, four (dK/dV) and three (dQ) products per tile pair, and the
+// registers dK/dV holds (two [16, d] accumulators a warp), which limit the
+// warps in flight.
+
+#include "flash_attention.cuh"
+
+namespace {
+
+using namespace passl_fa;
+
+// This thread's p and ds tiles (rows q = q0 + ty + 16 a, columns k = k0 + tx
+// + 16 c) from the staged q, k, v, do tiles and the rows' m, 1 / l and di:
+// p and ds are 0 past the last token, so sums over the padding add nothing.
+template <int LD>
+__device__ __forceinline__ void p_and_ds(float (&p)[kRows][kRows], float (&ds)[kRows][kRows],
+                                         const float* Qs, const float* Ks, const float* Vs,
+                                         const float* dOs, const float (&m)[kRows],
+                                         const float (&inv_l)[kRows], const float (&di)[kRows],
+                                         int q0, int k0, int L, int d, float scale, int ty,
+                                         int tx) {
+  scores<LD>(p, Qs, Ks, d, scale, ty, tx);
+  zero(ds);
+  gemm<kRows, kRows, false, float>(ds, dOs, LD, 1, Vs, 1, LD, d, ty, tx);  // dp = do v^T
+#pragma unroll
+  for (int a = 0; a < kRows; ++a) {
+    const bool row_ok = q0 + ty + kGrid * a < L;
+#pragma unroll
+    for (int c = 0; c < kRows; ++c) {
+      const bool ok = row_ok && k0 + tx + kGrid * c < L;
+      p[a][c] = ok ? __fmul_rn(expf(__fsub_rn(p[a][c], m[a])), inv_l[a]) : 0.f;
+      ds[a][c] = __fmul_rn(__fmul_rn(__fsub_rn(ds[a][c], di[a]), p[a][c]), scale);
+    }
+  }
+}
+
+// m, 1 / l and di of this thread's rows q0 + ty + 16 a (0, 1, 0 past L).
+__device__ __forceinline__ void row_stats(float (&m)[kRows], float (&inv_l)[kRows],
+                                          float (&di)[kRows], const float* __restrict__ m_in,
+                                          const float* __restrict__ l_in,
+                                          const float* __restrict__ di_in, int q0, int L, int ty) {
+#pragma unroll
+  for (int a = 0; a < kRows; ++a) {
+    const int i = q0 + ty + kGrid * a;
+    m[a] = i < L ? m_in[i] : 0.f;
+    inv_l[a] = i < L ? 1.f / l_in[i] : 1.f;
+    di[a] = i < L ? di_in[i] : 0.f;
+  }
+}
+
+template <int TM, int TN, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, const float (&acc)[TM][TN], int b,
+                                           int head, int row0, int L, int h, int d, int ty,
+                                           int tx) {
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+    const int i = row0 + ty + kGrid * a;
+    if (i >= L) continue;
+    T* row = out + (((int64_t)b * L + i) * h + head) * d;
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int col = tx + kGrid * c;
+      if (col < d) row[col] = from_f32<T>(acc[a][c]);
+    }
+  }
+}
+
+// The CUDA-core dK/dV and dQ, instantiated for f32 (bf16 and f16 take the
+// tensor-core kernels below); T marks where the library rounds.
+template <typename T, int RD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ m_in, const float* __restrict__ l_in,
+                           const float* __restrict__ di_in, T* __restrict__ dk,
+                           T* __restrict__ dv, int L, int h, int d, int64_t s_b, int64_t s_l,
+                           int64_t s_h, float scale) {
+  constexpr int DP = kGrid * RD;
+  constexpr int LD = DP + 1;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ps = dOs + kTile * LD;  // [64 q, kLdP]: p, then ds, at T's precision
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh - b * h;
+  const int k0 = blockIdx.y * kTile;
+  const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
+  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;  // do is contiguous
+  const int64_t row_base = (int64_t)bh * L;
+  const int tx = threadIdx.x % kGrid;
+  const int ty = threadIdx.x / kGrid;
+
+  stage_rows<T, DP>(Ks, k + base, s_l, k0, L, d);
+  stage_rows<T, DP>(Vs, v + base, s_l, k0, L, d);
+
+  float dk_acc[kRows][RD], dv_acc[kRows][RD];  // rows k0 + ty + 16 a
+  zero(dk_acc);
+  zero(dv_acc);
+  for (int q0 = 0; q0 < L; q0 += kTile) {
+    __syncthreads();  // the last tile's reads of Qs, dOs and Ps are done
+    stage_rows<T, DP>(Qs, q + base, s_l, q0, L, d);
+    stage_rows<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
+    float m[kRows], inv_l[kRows], di[kRows];
+    row_stats(m, inv_l, di, m_in + row_base, l_in + row_base, di_in + row_base, q0, L, ty);
+    __syncthreads();
+
+    float p[kRows][kRows], ds[kRows][kRows];
+    p_and_ds<LD>(p, ds, Qs, Ks, Vs, dOs, m, inv_l, di, q0, k0, L, d, scale, ty, tx);
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) {
+#pragma unroll
+      for (int c = 0; c < kRows; ++c) Ps[(ty + kGrid * a) * kLdP + tx + kGrid * c] = round_to<T>(p[a][c]);
+    }
+    __syncthreads();
+    const int nq = min(kTile, L - q0);
+    // dv[j][col] += sum_i p[i][j] do[i][col]
+    gemm<kRows, RD, false, float>(dv_acc, Ps, 1, kLdP, dOs, LD, 1, nq, ty, tx);
+    __syncthreads();  // every read of p is done
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) {
+#pragma unroll
+      for (int c = 0; c < kRows; ++c) Ps[(ty + kGrid * a) * kLdP + tx + kGrid * c] = round_to<T>(ds[a][c]);
+    }
+    __syncthreads();
+    // dk[j][col] += sum_i ds[i][j] q[i][col]
+    gemm<kRows, RD, false, float>(dk_acc, Ps, 1, kLdP, Qs, LD, 1, nq, ty, tx);
+  }
+  store_rows(dk, dk_acc, b, head, k0, L, h, d, ty, tx);
+  store_rows(dv, dv_acc, b, head, k0, L, h, d, ty, tx);
+}
+
+template <typename T, int RD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ m_in, const float* __restrict__ l_in,
+                          const float* __restrict__ di_in, T* __restrict__ dq, int L, int h,
+                          int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale) {
+  constexpr int DP = kGrid * RD;
+  constexpr int LD = DP + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;  // [64 q, kLdP]: ds at T's precision
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh - b * h;
+  const int q0 = blockIdx.y * kTile;
+  const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
+  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;
+  const int64_t row_base = (int64_t)bh * L;
+  const int tx = threadIdx.x % kGrid;
+  const int ty = threadIdx.x / kGrid;
+
+  stage_rows<T, DP>(Qs, q + base, s_l, q0, L, d);
+  stage_rows<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
+  float m[kRows], inv_l[kRows], di[kRows];
+  row_stats(m, inv_l, di, m_in + row_base, l_in + row_base, di_in + row_base, q0, L, ty);
+
+  float dq_acc[kRows][RD];  // rows q0 + ty + 16 a
+  zero(dq_acc);
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();  // the last tile's reads of Ks and Ps are done
+    stage_rows<T, DP>(Ks, k + base, s_l, k0, L, d);
+    stage_rows<T, DP>(Vs, v + base, s_l, k0, L, d);
+    __syncthreads();
+
+    float p[kRows][kRows], ds[kRows][kRows];
+    p_and_ds<LD>(p, ds, Qs, Ks, Vs, dOs, m, inv_l, di, q0, k0, L, d, scale, ty, tx);
+#pragma unroll
+    for (int a = 0; a < kRows; ++a) {
+#pragma unroll
+      for (int c = 0; c < kRows; ++c) Ps[(ty + kGrid * a) * kLdP + tx + kGrid * c] = round_to<T>(ds[a][c]);
+    }
+    __syncthreads();
+    // dq[i][col] += sum_j ds[i][j] k[j][col]
+    gemm<kRows, RD, false, float>(dq_acc, Ps, kLdP, 1, Ks, LD, 1, min(kTile, L - k0), ty, tx);
+  }
+  store_rows(dq, dq_acc, b, head, q0, L, h, d, ty, tx);
+}
+
+// ------------------------------------------------------------ tensor cores
+//
+// The tensor-core backward (bf16 / f16), blocks of 4 warps, warp w owning
+// rows 16 w .. 16 w + 15 of the block's tile. dK/dV computes the transposed
+// tiles s^T = k q^T and dp^T = v do^T (rows: the block's keys), so that p^T
+// and ds^T are A operands of dv += p^T do and dk += ds^T q as they stand;
+// dQ computes s = q k^T and dp = do v^T and adds ds k. Each tile is staged
+// once, as rows; the B operands read down its rows (q and do for dK/dV, k
+// for dQ) come through `ldmatrix.trans`.
+
+// p and ds of one accumulator entry: p = exp(s * scale - m) * (1 / l) and
+// ds = ((dp - di) * p) * scale, or 0 and 0 where `ok` is false.
+__device__ __forceinline__ void p_ds(float& s, float& dp, bool ok, float m, float inv_l, float di,
+                                     float scale) {
+  const float p = ok ? __fmul_rn(expf(__fsub_rn(__fmul_rn(s, scale), m)), inv_l) : 0.f;
+  dp = __fmul_rn(__fmul_rn(__fsub_rn(dp, di), p), scale);
+  s = p;
+}
+
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows_mma(T* __restrict__ out, const float (&acc)[DP / 8][4],
+                                               int b, int head, int row0, int L, int h, int d,
+                                               int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + (lane >> 2) + 8 * r;
+    if (i >= L) continue;
+    T* row = out + (((int64_t)b * L + i) * h + head) * d;
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; ++jd) {
+      const int col = jd * 8 + 2 * (lane & 3);
+      if (col < d) *reinterpret_cast<uint32_t*>(row + col) = pack<T>(acc[jd][2 * r], acc[jd][2 * r + 1]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ m_in, const float* __restrict__ l_in,
+                               const float* __restrict__ di_in, T* __restrict__ dk,
+                               T* __restrict__ dv, int L, int h, int d, int64_t s_b, int64_t s_l,
+                               int64_t s_h, float scale) {
+  constexpr int LD = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [64, LD] each
+  T* Vs = Ks + kTile * LD;
+  T* Qs = Vs + kTile * LD;
+  T* dOs = Qs + kTile * LD;
+  float* ms = reinterpret_cast<float*>(dOs + kTile * LD);  // [64] each: the q tile's m, 1 / l, di
+  float* ils = ms + kTile;
+  float* dis = ils + kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh - b * h;
+  const int k0 = blockIdx.y * kTile;
+  const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
+  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;  // do is contiguous
+  const int64_t row_base = (int64_t)bh * L;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+
+  stage_rows16<T, DP>(Ks, k + base, s_l, k0, L, d);
+  stage_rows16<T, DP>(Vs, v + base, s_l, k0, L, d);
+
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];  // keys k0 + 16 warp + lane / 4 (+ 8)
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  for (int q0 = 0; q0 < L; q0 += kTile) {
+    __syncthreads();  // the last tile's reads of the q-side tiles are done
+    stage_rows16<T, DP>(Qs, q + base, s_l, q0, L, d);
+    stage_rows16<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
+    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+      const int row = q0 + i;
+      ms[i] = row < L ? m_in[row_base + row] : 0.f;
+      ils[i] = row < L ? 1.f / l_in[row_base + row] : 1.f;
+      dis[i] = row < L ? di_in[row_base + row] : 0.f;
+    }
+    __syncthreads();
+
+    float p[kChunks][4], ds[kChunks][4];  // rows: keys; columns: the q tile
+    tile_product<T, DP, LD>(p, Ks, warp * 16, Qs, lane);    // s^T = k q^T
+    tile_product<T, DP, LD>(ds, Vs, warp * 16, dOs, lane);  // dp^T = v do^T
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + warp * 16 + (lane >> 2) + 8 * (e >> 1);
+        const int qi = j * 8 + 2 * t + (e & 1);
+        p_ds(p[j][e], ds[j][e], key < L && q0 + qi < L, ms[qi], ils[qi], dis[qi], scale);
+      }
+    }
+    acc_product<T, DP>(dv_acc, p, dOs, lane);   // dv += (p at do's type)^T do
+    acc_product<T, DP>(dk_acc, ds, Qs, lane);   // dk += (ds at do's type)^T q
+  }
+  store_rows_mma<T, DP>(dk, dk_acc, b, head, k0 + warp * 16, L, h, d, lane);
+  store_rows_mma<T, DP>(dv, dv_acc, b, head, k0 + warp * 16, L, h, d, lane);
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_attention_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ m_in, const float* __restrict__ l_in,
+                              const float* __restrict__ di_in, T* __restrict__ dq, int L, int h,
+                              int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale) {
+  constexpr int LD = DP + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [64, LD] each
+  T* dOs = Qs + kTile * LD;
+  T* Ks = dOs + kTile * LD;
+  T* Vs = Ks + kTile * LD;
+
+  const int bh = blockIdx.x;
+  const int b = bh / h;
+  const int head = bh - b * h;
+  const int q0 = blockIdx.y * kTile;
+  const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
+  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;
+  const int64_t row_base = (int64_t)bh * L;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+
+  stage_rows16<T, DP>(Qs, q + base, s_l, q0, L, d);
+  stage_rows16<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
+  float m[2], inv_l[2], di[2];  // this thread's rows q0 + 16 warp + lane / 4 (+ 8)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    m[r] = i < L ? m_in[row_base + i] : 0.f;
+    inv_l[r] = i < L ? 1.f / l_in[row_base + i] : 1.f;
+    di[r] = i < L ? di_in[row_base + i] : 0.f;
+  }
+
+  float dq_acc[DP / 8][4];
+  zero_acc(dq_acc);
+  for (int k0 = 0; k0 < L; k0 += kTile) {
+    __syncthreads();  // the last tile's reads of Ks and Vs are done
+    stage_rows16<T, DP>(Ks, k + base, s_l, k0, L, d);
+    stage_rows16<T, DP>(Vs, v + base, s_l, k0, L, d);
+    __syncthreads();
+
+    float p[kChunks][4], ds[kChunks][4];  // rows: the warp's queries; columns: the k tile
+    tile_product<T, DP, LD>(p, Qs, warp * 16, Ks, lane);    // s = q k^T
+    tile_product<T, DP, LD>(ds, dOs, warp * 16, Vs, lane);  // dp = do v^T
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool ok = q0 + warp * 16 + (lane >> 2) + 8 * r < L && k0 + j * 8 + 2 * t + (e & 1) < L;
+        p_ds(p[j][e], ds[j][e], ok, m[r], inv_l[r], di[r], scale);
+      }
+    }
+    acc_product<T, DP>(dq_acc, ds, Ks, lane);  // dq += (ds at k's type) k
+  }
+  store_rows_mma<T, DP>(dq, dq_acc, b, head, q0 + warp * 16, L, h, d, lane);
+}
+
+enum class Which { kDkv, kDq };
+
+template <Which W, typename T, int RD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const float* m,
+                   const float* l, const float* di, void* g0, void* g1, int n, int L, int h, int d,
+                   int64_t s_b, int64_t s_l, int64_t s_h, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(4, RD, 0);
+  const dim3 grid((unsigned)((int64_t)n * h), (unsigned)((L + kTile - 1) / kTile));
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  if constexpr (W == Which::kDkv) {
+    auto kernel = flash_attention_dkv_kernel<T, RD>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0),
+                                             static_cast<T*>(g1), L, h, d, s_b, s_l, s_h, scale);
+  } else {
+    auto kernel = flash_attention_dq_kernel<T, RD>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), L, h,
+                                             d, s_b, s_l, s_h, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <Which W, typename T>
+cudaError_t launch_t(const void* q, const void* k, const void* v, const void* dout,
+                     const float* m, const float* l, const float* di, void* g0, void* g1, int n,
+                     int L, int h, int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale,
+                     cudaStream_t st) {
+  switch (cols_per_thread(d)) {
+    case 2: return launch<W, T, 2>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 4: return launch<W, T, 4>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 6: return launch<W, T, 6>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 8: return launch<W, T, 8>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <Which W, typename T, int DP>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* dout,
+                       const float* m, const float* l, const float* di, void* g0, void* g1, int n,
+                       int L, int h, int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale,
+                       cudaStream_t stream) {
+  const dim3 grid((unsigned)((int64_t)n * h), (unsigned)((L + kTile - 1) / kTile));
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  if constexpr (W == Which::kDkv) {
+    const size_t smem = mma_smem_bytes(4, DP, 3 * kTile);
+    auto kernel = flash_attention_dkv_mma_kernel<T, DP>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0),
+                                                static_cast<T*>(g1), L, h, d, s_b, s_l, s_h,
+                                                scale);
+  } else {
+    const size_t smem = mma_smem_bytes(4, DP, 0);
+    auto kernel = flash_attention_dq_mma_kernel<T, DP>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), L,
+                                                h, d, s_b, s_l, s_h, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <Which W, typename T>
+cudaError_t launch_mma_t(const void* q, const void* k, const void* v, const void* dout,
+                         const float* m, const float* l, const float* di, void* g0, void* g1,
+                         int n, int L, int h, int d, int64_t s_b, int64_t s_l, int64_t s_h,
+                         float scale, cudaStream_t st) {
+  switch (mma_head_dim(d)) {
+    case 32: return launch_mma<W, T, 32>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 64: return launch_mma<W, T, 64>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 96: return launch_mma<W, T, 96>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    case 128: return launch_mma<W, T, 128>(q, k, v, dout, m, l, di, g0, g1, n, L, h, d, s_b, s_l, s_h, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <Which W>
+int launch_any(const void* q, const void* k, const void* v, const void* dout, const void* m,
+               const void* l, const void* di, void* g0, void* g1, int n, int L, int h, int d,
+               long long s_b, long long s_l, long long s_h, float scale, int dtype, int device,
+               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0 || L <= 0 || h <= 0 || cols_per_thread(d) == 0 || (L + kTile - 1) / kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* m32 = static_cast<const float*>(m);
+  const float* l32 = static_cast<const float*>(l);
+  const float* di32 = static_cast<const float*>(di);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch_t<W, float>(q, k, v, dout, m32, l32, di32, g0, g1, n, L, h, d, s_b, s_l,
+                                     s_h, scale, st);
+    case 1:
+      return (int)launch_mma_t<W, __nv_bfloat16>(q, k, v, dout, m32, l32, di32, g0, g1, n, L, h,
+                                                 d, s_b, s_l, s_h, scale, st);
+    case 2:
+      return (int)launch_mma_t<W, __half>(q, k, v, dout, m32, l32, di32, g0, g1, n, L, h, d, s_b,
+                                          s_l, s_h, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16, 2 float16. q, k, v [n, L, h, d] at `dtype`
+// with element strides s_b, s_l, s_h (shared by the three; last dim
+// contiguous); dout, dk, dv, dq [n, L, h, d] contiguous at `dtype`; m, l, di
+// [n, h, L] float32 (the forward's row max and sum, and sum_d o * do); all
+// on `device`. d <= 128, d % 8 == 0. Each launches one kernel on `stream`
+// and returns cudaGetLastError() after the launch.
+extern "C" int passl_flash_attention_dkv(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* m, const void* l,
+                                         const void* di, void* dk, void* dv, int n, int L, int h,
+                                         int d, long long s_b, long long s_l, long long s_h,
+                                         float scale, int dtype, int device, void* stream) {
+  return launch_any<Which::kDkv>(q, k, v, dout, m, l, di, dk, dv, n, L, h, d, s_b, s_l, s_h,
+                                 scale, dtype, device, stream);
+}
+
+extern "C" int passl_flash_attention_dq(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* m, const void* l,
+                                        const void* di, void* dq, int n, int L, int h, int d,
+                                        long long s_b, long long s_l, long long s_h, float scale,
+                                        int dtype, int device, void* stream) {
+  return launch_any<Which::kDq>(q, k, v, dout, m, l, di, dq, nullptr, n, L, h, d, s_b, s_l, s_h,
+                                scale, dtype, device, stream);
+}

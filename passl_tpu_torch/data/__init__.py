@@ -1,10 +1,14 @@
 """Data pipeline factory (twin of `passl_tpu/data/__init__.py:38-77`).
 
-`build_dataloader` builds the JAX package's own jax-free pieces (datasets,
-transforms, `DistributedBatchSampler` / `RepeatedAugSampler`, `DataLoader`,
-and the Mixup/Cutmix batch transforms) and takes this process's rank and the
-world size from `torch.distributed` when it is initialised, else 0 and 1.
+`build_dataloader` builds the port's own copies of the JAX package's host
+pieces (`datasets`, `transforms` with `autoaugment`, `loader`'s
+`DistributedBatchSampler` / `RepeatedAugSampler` and `DataLoader`, and the
+Mixup/Cutmix `batch_transforms`), which give the JAX package's batches bit
+for bit from the same config and seed. This process's rank and the world
+size come from `torch.distributed` when it is initialised, else 0 and 1.
 Batches are numpy; `to_device` makes them tensors on an explicit device.
+The mask transforms (`masking`), token-label and tokenizer datasets are not
+copied yet.
 """
 from __future__ import annotations
 
@@ -15,9 +19,25 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from passl_tpu.data import SAMPLERS, build_dataset
-from passl_tpu.data import batch_transforms as _bt
-from passl_tpu.data.loader import DataLoader
+from . import autoaugment  # noqa: F401  (registers AutoAugment/RandAugment/AugMix/TimmAutoAugment)
+from . import batch_transforms as _bt
+from .datasets import DATASETS
+from .loader import DataLoader, DistributedBatchSampler, RepeatedAugSampler
+
+SAMPLERS = {
+    "DistributedBatchSampler": DistributedBatchSampler,
+    "BatchSampler": DistributedBatchSampler,
+    "RepeatedAugSampler": RepeatedAugSampler,
+    "DistributedRepeatedAugSampler": RepeatedAugSampler,
+}
+
+
+def build_dataset(cfg: Dict[str, Any]):
+    cfg = copy.deepcopy(dict(cfg))
+    name = cfg.pop("name")
+    if name == "SwAVMultiCropDataset" and isinstance(cfg.get("dataset"), dict):
+        cfg["dataset"] = build_dataset(cfg["dataset"])
+    return DATASETS[name](**cfg)
 
 
 def _rank_and_world() -> tuple[int, int]:

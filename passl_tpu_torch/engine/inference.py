@@ -11,8 +11,8 @@ from typing import Any, Sequence, Union
 
 import numpy as np
 import torch
-from passl_tpu.data.transforms import build_transform
 
+from ..data.transforms import build_transform
 from ..utils import io, logger
 
 

@@ -21,10 +21,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from passl_tpu.utils.misc import SmoothedValue
-
 from ..data import to_device
 from ..utils import io, logger
+from ..utils.misc import SmoothedValue
 
 
 def _peak_mem_str(device: torch.device) -> str:

@@ -13,7 +13,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from passl_tpu.utils.registry import Registry
+from ..utils.registry import Registry
 
 LOSSES = Registry("losses")
 

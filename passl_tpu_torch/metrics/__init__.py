@@ -6,7 +6,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from passl_tpu.utils.registry import Registry
+from ..utils.registry import Registry
 
 METRICS = Registry("metrics")
 

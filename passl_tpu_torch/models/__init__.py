@@ -1,3 +1,4 @@
 from .base import MODELS, build_model, register_model  # noqa: F401
 from . import cait  # noqa: F401
 from . import swin_transformer  # noqa: F401
+from . import vision_transformer  # noqa: F401

@@ -9,7 +9,7 @@ from typing import Optional
 
 from torch import nn
 
-from passl_tpu.utils.registry import Registry, build_from_config
+from ..utils.registry import Registry, build_from_config
 
 MODELS = Registry("models")
 

@@ -1,6 +1,7 @@
 """Shared NN building blocks, with flax's precision conventions.
 
-Counterpart of `passl_tpu/nn/layers.py:22-94`. Parameters are float32; each
+Counterpart of `passl_tpu/nn/layers.py:22-185`, the ViT family's `Attention`
+and `Block` included. Parameters are float32; each
 layer casts them, and its input, to its compute `dtype` where it uses them,
 as flax's `Dense`/`Conv(dtype=...)` do. `LayerNorm` takes its statistics in
 float32 and returns the compute dtype, as flax's does. Images are NHWC at
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import multi_head_attention, resolve_attn_impl
 from . import init as tinit
 
 Identity = nn.Identity  # ignores extra arguments, like the flax module
@@ -131,3 +133,79 @@ class PatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
         return x.flatten(2).transpose(1, 2)  # [n, c, h, w] -> [n, h*w, c]
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused qkv projection (flax names
+    `qkv`, `proj`); `attn_impl` einsum, flash or auto, resolved per call by
+    `ops.attention.resolve_attn_impl`. Dropout is refused: no config on the
+    port's paths sets it."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 dtype: torch.dtype = torch.float32, softmax_dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "einsum"):
+        super().__init__()
+        if attn_drop or proj_drop:
+            raise NotImplementedError("Attention: attention and projection dropout are not "
+                                      "ported yet")
+        if attn_impl not in ("einsum", "flash", "auto"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.num_heads = num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.dtype = dtype
+        self.softmax_dtype = softmax_dtype
+        self.attn_impl = attn_impl
+        self.qkv = Dense(dim, 3 * dim, dtype, kernel_init=tinit.xavier_uniform_, use_bias=qkv_bias)
+        self.proj = Dense(dim, dim, dtype, kernel_init=tinit.xavier_uniform_)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, l, c = x.shape
+        h = self.num_heads
+        qkv = self.qkv(x).reshape(n, l, 3, h, c // h)
+        q, k, v = qkv.unbind(2)  # [n, l, h, d] views: the flash kernels read them in place
+        impl = resolve_attn_impl(self.attn_impl, l, 0.0, not self.training)
+        out = multi_head_attention(q, k, v, self.scale, impl=impl,
+                                   softmax_dtype=self.softmax_dtype, out_dtype=self.dtype)
+        return self.proj(out)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block (flax names `norm1`, `attn`, `norm2`, `mlp`,
+    and `gamma_1`, `gamma_2` when `init_values` asks for LayerScale, kept in
+    f32). In training, `generator` draws the stochastic-depth masks."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None, drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0, init_values: Optional[float] = None,
+                 norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 softmax_dtype: torch.dtype = torch.float32, attn_impl: str = "einsum"):
+        super().__init__()
+        if drop:
+            raise NotImplementedError("Block: dropout (drop_rate) is not ported yet")
+        self.init_values = init_values
+        self.norm1 = LayerNorm(dim, eps=norm_eps, dtype=dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_drop, drop, dtype,
+                              softmax_dtype, attn_impl)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim, eps=norm_eps, dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.drop_path2 = DropPath(drop_path)
+        if init_values is not None:
+            self.gamma_1 = nn.Parameter(torch.empty(dim))
+            self.gamma_2 = nn.Parameter(torch.empty(dim))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.init_values is not None:
+            tinit.constant_(self.gamma_1, self.init_values)
+            tinit.constant_(self.gamma_2, self.init_values)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.attn(self.norm1(x))
+        if self.init_values is not None:
+            y = y * self.gamma_1
+        x = x + self.drop_path1(y, generator)
+        y = self.mlp(self.norm2(x))
+        if self.init_values is not None:
+            y = y * self.gamma_2
+        return x + self.drop_path2(y, generator)

@@ -101,7 +101,7 @@ def load() -> ctypes.CDLL:
     build_info.update(path=str(lib_path), commands=cmds, log=log,
                       seconds=time.perf_counter() - t0, built=bool(cmds))
 
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.passl_talking_heads_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.passl_talking_heads_fwd.restype = i32
     lib.passl_talking_heads_max_k.argtypes = []
@@ -110,11 +110,19 @@ def load() -> ctypes.CDLL:
                                             i32, i32, i32, i32, i32, i32, vp]
     lib.passl_talking_heads_bwd.restype = i32
     lib.passl_talking_heads_bwd_blocks.argtypes = [i32, i32]
-    lib.passl_talking_heads_bwd_blocks.restype = ctypes.c_longlong
+    lib.passl_talking_heads_bwd_blocks.restype = i64
     lib.passl_window_attention_fwd.argtypes = [vp] * 6 + [i32] * 5 + [f32, i32, i32, vp]
     lib.passl_window_attention_fwd.restype = i32
     lib.passl_window_attention_bwd.argtypes = [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp]
     lib.passl_window_attention_bwd.restype = i32
     lib.passl_window_attention_bwd_blocks.argtypes = [i32, i32]
-    lib.passl_window_attention_bwd_blocks.restype = ctypes.c_longlong
+    lib.passl_window_attention_bwd_blocks.restype = i64
+    # (q, k, v, outputs...), n, L, h, d, strides s_b, s_l, s_h of q/k/v, scale, dtype, device, stream
+    geometry = [i32] * 4 + [i64] * 3 + [f32, i32, i32, vp]
+    lib.passl_flash_attention_fwd.argtypes = [vp] * 6 + geometry
+    lib.passl_flash_attention_fwd.restype = i32
+    lib.passl_flash_attention_dkv.argtypes = [vp] * 9 + geometry
+    lib.passl_flash_attention_dkv.restype = i32
+    lib.passl_flash_attention_dq.argtypes = [vp] * 8 + geometry
+    lib.passl_flash_attention_dq.restype = i32
     return lib
