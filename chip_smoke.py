@@ -72,7 +72,34 @@ Run from the repo root:  python3 chip_smoke.py
    launches per step, first-step gradients against the einsum path at
    softmax_dtype=float32 (overall and for each of the 12 attn.qkv.weight),
    resume, eval.
-13. Prints the card line, a JSON line of the seven kernels' results, and
+13. Holds the fused augmentation kernel (`fused_augment`, BYOL's device
+   recipe in one pass) against its plain version on the same draws, at BYOL's
+   views [128, 224, 224, 3] with view 1's settings (blur 1.0, solarize 0.0)
+   and view 2's (blur 0.1, solarize 0.2), [256, 32, 32, 3], a non-square
+   [8, 160, 224, 3], [4, 16, 16, 3] at 23 taps (every position an edge) and
+   one channel, with deterministic and random settings: every entry within
+   one bf16 ulp, the share of bitwise equal entries printed, two launches
+   bitwise equal, identical images with other draws different, and at 4,096
+   images the blur and solarize rates within 4 sigma of their
+   probabilities. Its path is its own op (the JAX package calls it from no
+   model): the op's entry point on BYOL's two views is the path whose
+   launches are counted. Times it against its plain version at view 1's
+   settings, and, as context only, the port's plain `byol_device_augment`
+   on two such views.
+14. Trains BYOL ResNet-50 at 224, full width and depth, through
+   `Engine(config, mode="train", device="cuda").train()` on
+   configs/byol/byol_r50_in1k.yaml with synthetic images in place of
+   ImageNet (the config's own two-view transforms), batch 128 per view, bf16,
+   use_device_augment, MomentumLARS and the cosine EMA, 8 steps. Checks:
+   every loss finite and in [0, 8]; after every step each target parameter
+   is m(t) target + (1 - m(t)) online in f32; the target has no optimizer
+   state; the BatchNorm statistics of both towers moved; the checkpoint
+   resumes at its step; and the first step's loss and gradients on the card
+   against the same step on the CPU from the same init and batch, in f32 and
+   in f64 (4 pairs, no device augmentation), beside f32 against f64 on the
+   CPU as the yardstick of f32's rounding. Prints step time, pairs/s and
+   views/s, reader share, peak memory and a torch.profiler view of one step.
+15. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -96,6 +123,9 @@ from passl_tpu_torch.data import build_dataloader, to_device
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
+from passl_tpu_torch.ops.augment import byol_device_augment
+from passl_tpu_torch.ops.augment_kernel import (fused_augment, fused_augment_draws,
+                                                fused_augment_ref, fused_augment_with_draws)
 from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_attention_dkv, flash_attention_dkv_ref,
                                            flash_attention_dq, flash_attention_dq_ref,
@@ -977,6 +1007,316 @@ def phase_train(spec: TrainSpec) -> dict:
     return out
 
 
+# ------------------------------------------------------------ fused augment
+
+# BYOL's two views (reference BYOL.py:239): view 1 always blurred, never
+# solarized; view 2 blurred with p 0.1, solarized with p 0.2
+AUG_VIEW1 = dict(blur_prob=1.0, solarize_prob=0.0)
+AUG_VIEW2 = dict(blur_prob=0.1, solarize_prob=0.2)
+AUG_BYOL = (128, IMG, IMG, 3)  # one view of BYOL's per-card batch
+# (shape, settings): deterministic (coins at 0/1, one sigma) and random ones
+AUG_CASES = [
+    (AUG_BYOL, AUG_VIEW1),
+    (AUG_BYOL, AUG_VIEW2),
+    ((256, 32, 32, 3), dict(blur_prob=0.5, solarize_prob=0.5)),
+    ((8, 160, 224, 3), dict(blur_prob=1.0, solarize_prob=1.0, sigma_range=(1.5, 1.5))),
+    ((4, 16, 16, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=23, sigma_range=(2.0, 2.0))),
+    ((16, 64, 48, 1), dict(blur_prob=1.0, solarize_prob=1.0, sigma_range=(0.1, 2.0),
+                           mean=(0.45,), std=(0.226,))),
+    ((64, 224, 224, 3), dict(blur_prob=0.0, solarize_prob=0.0)),
+]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of bf16 (8 significant bits) at |x|, with a
+    floor of 1e-5 near zero (x close to the mean), where the bf16 grid is
+    finer than the f32 values' own error: x carries a few f32 ulps of 1 from
+    the blur's sums, scaled by 1 / std (the plain version was 2.8e-6 from
+    float64 on an H100)."""
+    e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -126)))
+    return torch.clamp(torch.exp2(e - 7), min=1e-5)
+
+
+def _aug_images(shape, seed) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+
+
+def _aug_rates(seed: int) -> dict:
+    """4,096 copies of one 4 x 4 image through the kernel: which of the four
+    (blur, solarize) outcomes each got, against their probabilities."""
+    n = 4096
+    one = _aug_images((1, 4, 4, 1), seed)
+    kw = dict(taps=3, sigma_range=(1.0, 1.0), mean=(0.0,), std=(1.0,))
+    outcomes = {(b, so): fused_augment_ref(one, torch.zeros(1, 3, device="cuda"),
+                                           blur_prob=float(b), solarize_prob=float(so), **kw)[0]
+                for b in (0, 1) for so in (0, 1)}
+    check(len({tuple(v.flatten().tolist()) for v in outcomes.values()}) == 4,
+          "augment rates: the four outcomes are not distinct")
+    out = {}
+    for blur_prob, sol_prob in ((AUG_VIEW2["blur_prob"], AUG_VIEW2["solarize_prob"]), (0.5, 0.8)):
+        got = fused_augment(one.expand(n, -1, -1, -1).contiguous(), seed, blur_prob=blur_prob,
+                            solarize_prob=sol_prob, **kw)
+        which = {k: (got == v).flatten(1).all(1) for k, v in outcomes.items()}
+        check(int(sum(w.sum() for w in which.values())) == n, "augment rates: unknown outcome")
+        for name, share, p in (
+                ("blur", (which[(1, 0)] | which[(1, 1)]).float().mean().item(), blur_prob),
+                ("solarize", (which[(0, 1)] | which[(1, 1)]).float().mean().item(), sol_prob)):
+            sigma = float(np.sqrt(p * (1 - p) / n))
+            check(abs(share - p) <= 4 * sigma, f"augment {name} rate {share} at p {p}")
+            out[f"{name}_rate@{p}"] = share
+            out[f"{name}_z@{p}"] = (share - p) / sigma
+    return out
+
+
+def phase_augment() -> dict:
+    results = {}
+    with torch.inference_mode():
+        for i, (shape, kw) in enumerate(AUG_CASES):
+            imgs = _aug_images(shape, seed=800 + i)
+            u = fused_augment_draws(shape[0], 900 + i, imgs.device)
+            got = fused_augment_with_draws(imgs, u, **kw)
+            want = fused_augment_ref(imgs, u, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16 and got.shape == imgs.shape,
+                  f"augment output {got.dtype} {tuple(got.shape)}")
+            g, w = got.float(), want.float()
+            diff = (g - w).abs()
+            over = diff > _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+            beyond = int(over.sum())
+            rec = {"max_abs_err": diff.max().item(), "bitwise_equal_share":
+                   (got.view(torch.int16) == want.view(torch.int16)).float().mean().item(),
+                   "blurred": int((u[:, 1] < kw["blur_prob"]).sum()),
+                   "solarized": int((u[:, 2] < kw["solarize_prob"]).sum())}
+            check(beyond == 0, f"augment at {shape} {kw}: {beyond} entries beyond one bf16 ulp, "
+                               f"{rec}, (kernel, plain): "
+                               f"{list(zip(g[over][:5].tolist(), w[over][:5].tolist()))}")
+            check(torch.equal(got, fused_augment_with_draws(imgs, u, **kw)),
+                  f"augment at {shape}: two launches differ")
+            if shape == AUG_BYOL and kw == AUG_VIEW1:
+                # read u8 once, write bf16 once; each blurred image's taps are
+                # 2 passes x 2 flops x taps per element (view 1: every image)
+                elems = imgs.numel()
+                flops = 4 * 23 * (elems // shape[0]) * rec["blurred"]
+                rec.update(_time_pair(lambda: fused_augment_with_draws(imgs, u, **kw),
+                                      lambda: fused_augment_ref(imgs, u, **kw),
+                                      3 * elems, flops, torch.float32))
+                v2 = _aug_images(shape, seed=850)
+                gen = torch.Generator(device="cuda")
+                rec["byol_device_augment_plain_ms"] = _time_ms(
+                    lambda: byol_device_augment(imgs, v2, gen.manual_seed(0)), iters=10)
+            results[(shape, tuple(sorted(kw.items())))] = rec
+            log(f"[augment] {shape} {kw}: {_fmt(rec)}, repeatable bitwise")
+            del imgs, u, got, want, g, w, diff
+        # per-image draws: identical images with other draws come out different
+        same = _aug_images((1, 64, 64, 3), seed=860).expand(8, -1, -1, -1).contiguous()
+        out = fused_augment(same, 7, blur_prob=1.0, solarize_prob=0.0,
+                            sigma_range=(0.1, 3.0)).float()
+        differ = all(not torch.equal(out[0], out[j]) for j in range(1, 8))
+        check(differ, "augment: identical images with other draws came out equal")
+        rates = _aug_rates(seed=11)
+        log(f"[augment] identical images, other draws: all differ; rates at 4096 images: "
+            f"{_fmt(rates)}")
+        # the op's own path: BYOL's two views through its entry point
+        v1, v2 = _aug_images(AUG_BYOL, 870), _aug_images(AUG_BYOL, 871)
+        fused_augment.launches = 0
+        a1 = fused_augment(v1, 1, **AUG_VIEW1)
+        a2 = fused_augment(v2, 2, **AUG_VIEW2)
+        torch.cuda.synchronize()
+        launches = fused_augment.launches
+        check(launches == 2 and all(bool(torch.isfinite(a.float()).all()) for a in (a1, a2)),
+              f"augment path: {launches} launches")
+        log(f"[augment] BYOL's two views through fused_augment: launches {launches}")
+    torch.cuda.empty_cache()
+    return {"cases": results, "launches": launches}
+
+
+# ----------------------------------------------------------- BYOL ResNet-50
+
+BYOL_CONFIG = os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml")
+BYOL_BATCH = 128  # per view: the recipe's 4,096 over 32 cards
+BYOL_GRAD_PAIRS = 4  # the f32 card-vs-CPU first step
+
+
+def _byol_config(out_dir: str, batch: int, *overrides: str):
+    """The in1k config with synthetic images in place of ImageNet (the
+    config's own two-view transforms stay), `batch` pairs, TRAIN_STEPS steps."""
+    config = cfg_util.get_config(BYOL_CONFIG, overrides=[
+        f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
+        "Global.print_batch_step=1", *overrides])
+    dl = config["DataLoader"]["Train"]
+    dl["dataset"] = {"name": "SyntheticDataset", "size": 1024, "image_size": IMG,
+                     "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
+    dl["sampler"]["batch_size"] = batch
+    dl["loader"]["num_workers"] = 6  # leaves cores to the training process on an 8-core host
+    return config
+
+
+def _byol_first_batch(engine: Engine, device: str):
+    dl = dict(engine.config["DataLoader"]["Train"], loader={"num_workers": 0, "prefetch": 0})
+    loader = build_dataloader(dl, "Train", seed=engine.seed)
+    loader.set_epoch(1)
+    batch = engine.prepare_batch(next(iter(loader)))
+    check(all(np.asarray(v).dtype == np.uint8 for v in batch),
+          f"BYOL views reach the device as {[np.asarray(v).dtype for v in batch]}, want uint8")
+    return to_device(batch, torch.device(device))
+
+
+def _to_f64(model: torch.nn.Module) -> None:
+    """Every parameter, buffer and compute dtype of `model` in float64 (a
+    numerics yardstick only: the port computes in f32 or bf16)."""
+    model.double()
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+
+
+def _byol_first_step(tmp: str, device: str, f64: bool) -> tuple[float, dict]:
+    e = Engine(_byol_config(os.path.join(tmp, f"grads_{device}_{f64}"), BYOL_GRAD_PAIRS,
+                            "FP16.enable=False", "Model.use_device_augment=False"),
+               mode="train", device=device)
+    if f64:
+        _to_f64(e.model)
+    loss = float(e.train_step.forward_backward(e.state, _byol_first_batch(e, device))["loss"])
+    grads = {n: p.grad.detach().double().cpu().clone() for n, p in e.model.named_parameters()
+             if not n.startswith("target.")}  # the target gets no gradient
+    e.close()
+    del e
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def _grad_agreement(tag: str, a: tuple, b: tuple) -> dict:
+    """Loss and gradient cosines of two first steps (loss, grads): overall and
+    the lowest of the stem's and layer4's conv weights."""
+    (l_a, g_a), (l_b, g_b) = a, b
+    names = list(g_a)
+    cos_all = _cos(torch.cat([g_a[n].flatten() for n in names]),
+                   torch.cat([g_b[n].flatten() for n in names]))
+    convs = [n for n in names if g_a[n].dim() == 4 and (
+        n == "online.backbone.conv1.weight" or n.startswith("online.backbone.layer4."))]
+    check(len(convs) == 11, f"BYOL-R50: {len(convs)} stem/layer4 convs, want 11")
+    cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in convs}
+    worst = min(cos_conv, key=cos_conv.get)
+    rel = abs(l_a - l_b) / abs(l_b)
+    log(f"[train] BYOL-R50 first step, {tag} ({BYOL_GRAD_PAIRS} pairs): loss {l_a:.9f} vs "
+        f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
+        f"{len(convs)} stem/layer4 convs {cos_conv[worst]:.9f} ({worst})")
+    return {"loss_rel": rel, "grad_cos": cos_all, "grad_cos_min_conv": cos_conv[worst]}
+
+
+def _byol_grads_card_vs_cpu(tmp: str) -> dict:
+    """The first step's loss and gradients on the card against the same step
+    on the CPU, from the same init and batch, in f32 (TF32 off) and in f64;
+    and, as the yardstick of f32 rounding, f32 against f64 on the CPU."""
+    runs = {(d, f64): _byol_first_step(tmp, d, f64) for f64 in (False, True)
+            for d in ("cuda", "cpu")}
+    f32 = _grad_agreement("f32, card vs CPU", runs["cuda", False], runs["cpu", False])
+    f64 = _grad_agreement("f64, card vs CPU", runs["cuda", True], runs["cpu", True])
+    ref = _grad_agreement("CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
+    # at ResNet-50's random init the gradient of a weight that feeds a
+    # BatchNorm is a small remainder of large sums, which f32 resolves only to
+    # the yardstick's cosine: in f32 the card and the CPU must agree at least
+    # as well, and to 1e-3; f64 resolves it, and there they must agree to 1e-6
+    for rec, tol in ((f32, 1e-3), (f64, 1e-6)):
+        check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
+              f"BYOL-R50 card vs CPU first step: {rec}")
+    check(f32["grad_cos"] >= ref["grad_cos"],
+          f"BYOL-R50 f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
+    return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref))
+            for k, v in rec.items()}
+
+
+class _EmaCheck:
+    """Wraps the engine's train step: after every step each target parameter
+    must be m(t) target_prev + (1 - m(t)) online_new in f32, m(t) the cosine
+    schedule at the step before the increment."""
+
+    def __init__(self, engine: Engine):
+        self.engine, self.step_fn = engine, engine.train_step
+        (self.src, self.dst, self.m_fn), = self.step_fn.ema_pairs
+        self.worst = 0.0
+
+    def __call__(self, state, batch):
+        prev = [t.detach().clone() for t in self.dst]
+        m = self.m_fn(state.step)
+        metrics = self.step_fn(state, batch)
+        with torch.no_grad():
+            for s, d, p in zip(self.src, self.dst, prev):
+                want = p * m + s * (1.0 - m)
+                err = ((d - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+                self.worst = max(self.worst, err)
+        # the same two f32 roundings in another kernel (foreach against per tensor)
+        check(self.worst <= 1e-6, f"BYOL-R50 EMA rule broken at step {state.step}: {self.worst}")
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+def phase_train_byol() -> dict:
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_byol_grads_card_vs_cpu(tmp))
+        cfg = _byol_config(os.path.join(tmp, "bf16"), BYOL_BATCH)
+        e = Engine(cfg, mode="train", device="cuda")
+        check(e.policy.compute_dtype == torch.bfloat16 and e.model.use_device_augment
+              and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS",
+              "BYOL-R50: not the recipe's bf16 / device augment / LARS")
+        stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
+        batch = _byol_first_batch(e, "cuda")
+        ema = _EmaCheck(e)
+        e.train_step = ema
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        e.train_step = ema.step_fn
+        hist = e.train_loop.history
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses))
+              and all(0.0 <= v <= 8.0 for v in losses), f"BYOL-R50 losses {losses}")
+        stateful = {id(p) for p in e.optimizer.torch_optimizer.state}
+        named = list(e.model.named_parameters())
+        check(not any(id(p) in stateful for n, p in named if n.startswith("target.")) and
+              all(id(p) in stateful for n, p in named if not n.startswith("target.")),
+              "BYOL-R50: the target has optimizer state, or the online tower lacks it")
+        moved = {tower: all(not torch.equal(v, stats0[k]) for k, v in e.model.state_dict().items()
+                            if k.startswith(tower) and "running" in k)
+                 for tower in ("online.", "target.")}
+        check(all(moved.values()), f"BYOL-R50: BatchNorm statistics moved {moved}")
+        steady = hist[1:]  # the first step pays for cuDNN's and the allocator's warm-up
+        step_s = float(np.median([h["batch_cost"] for h in steady]))
+        reader = float(np.median([h["reader_cost"] for h in steady]))
+        rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": step_s,
+               "pairs_per_s": BYOL_BATCH / step_s, "views_per_s": 2 * BYOL_BATCH / step_s,
+               "reader_s_median": reader, "reader_share": reader / step_s,
+               "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30,
+               "ema_max_rel_err": ema.worst}
+        log("[train] BYOL-R50 bf16: losses " + ", ".join(f"{v:.5f}" for v in losses) + "; "
+            + _fmt(rep))
+        log("[train] BYOL-R50: the EMA rule held at every step, the target has no optimizer "
+            "state, BatchNorm statistics of both towers moved")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no BYOL-R50 checkpoint")
+        log(f"[profile] BYOL-R50 train step, bf16: "
+            f"{_profile(lambda: float(e.train_step(e.state, batch)['loss']))}")
+        out.update(rep)
+        del e, batch
+        torch.cuda.empty_cache()
+        e_r = Engine(_byol_config(os.path.join(tmp, "resume"), BYOL_BATCH,
+                                  f"Global.checkpoint={ckpt}",
+                                  f"Global.max_train_step={TRAIN_STEPS + 1}"),
+                     mode="train", device="cuda")
+        e_r.train()
+        hist = e_r.train_loop.history
+        check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1
+              and np.isfinite(hist[0]["loss"]), f"BYOL-R50 resume: history {hist}")
+        log(f"[train] BYOL-R50 resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
+            f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
+        del e_r
+        torch.cuda.empty_cache()
+    return out
+
+
 def _timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1013,6 +1353,9 @@ def main() -> None:
     train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)["launches"]
     swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)["launches"]
     vit = _timed("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
+    aug = _timed("augment", phase_augment)
+    _timed("train BYOL-R50", phase_train_byol)
+    a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]
     ff_rec, fb_rec = ffwd[(FLASH_TIMED, torch.bfloat16)], fbwd[(FLASH_TIMED, torch.bfloat16)]
@@ -1040,6 +1383,8 @@ def main() -> None:
         _kernel_row("flash_attention_dq", "flash_attention_bwd.cu",
                     f"{_LIB}:1146 (via passl_tpu/ops/attention.py:111)", vit["flash_attention_dq"],
                     fb_rec["dq_max_abs_err"], fb_rec["dq"]),
+        _kernel_row("fused_augment", "augment.cu", "passl_tpu/ops/pallas/augment_kernel.py:36",
+                    aug["launches"], a_rec["max_abs_err"], a_rec),
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,18 @@ and loss scaler, the model (initialised from `Global.seed` by
 state_dict file), the param-group optimizer, the lr schedule and the
 gradient clip, the train state, the train and eval steps, and the loops.
 
+Without a `Loss` block (the SSL methods) the model returns its loss dict,
+the loop is `ContrastiveLearningTrainingEpochLoop`, and a model's `ema_map`
+and `frozen_patterns` are honoured as in the JAX engine (`engine.py:302-388`):
+each EMA target tower starts as a copy of its online tower before the
+optimizer is built (and, after `Global.pretrained_model`, takes from the
+online tower only what the file did not fill), the frozen patterns go to the
+optimizer, and the train step moves each target after the optimizer step.
+
 Not ported yet, and refused when the config asks for them: meshes and
-sharding (`DistributedStrategy` degrees above 1, `recompute`), EMA pairs and
-`param_transforms` (SSL models), hooks and the profiler.
+sharding (`DistributedStrategy` degrees above 1, `recompute`),
+`param_transforms` and `optimizer_overrides` (SwAV, DINO and others), hooks
+and the profiler.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ from ..optimizer import build_optimizer
 from ..scheduler import build_lr_scheduler
 from ..utils import io, logger
 from . import loops as loops_mod
-from .steps import EvalMetricsStep, TrainStep
+from .steps import EvalMetricsStep, TrainStep, ema_pairs_of
 
 _PARALLEL_KEYS = ("tensor_parallel", "mp_degree", "sharding", "sharding_degree", "fsdp_degree",
                   "pipeline_parallel", "pp_degree", "pipeline")
@@ -110,9 +119,6 @@ class Engine:
 
         # ---- loss and metrics
         self.criterion = build_loss(config.get("Loss", {}).get("Train")) if config.get("Loss") else None
-        if mode == "train" and self.criterion is None:
-            raise NotImplementedError("training without a Loss block (the SSL methods, whose "
-                                      "model returns its loss) is not ported yet")
         metric_cfg = config.get("Metric", {})
         self.metric_fns = (build_metrics(metric_cfg.get("Eval") or metric_cfg.get("Train"))
                            if metric_cfg else [])
@@ -135,15 +141,17 @@ class Engine:
         if "dtype" not in model_cfg and self.policy.compute_dtype != torch.float32:
             model_cfg["dtype"] = self.policy.compute_dtype
         self.model = build_model(model_cfg)
-        for hook in ("ema_map", "param_transforms", "frozen_patterns", "optimizer_overrides"):
+        for hook in ("param_transforms", "optimizer_overrides"):
             if hasattr(self.model, hook):
                 raise NotImplementedError(f"model {model_cfg.get('name')} has {hook}, which the "
                                           "port's engine does not handle yet")
+        ema_map = list(self.model.ema_map()) if hasattr(self.model, "ema_map") else []
         init_module(self.model, torch.Generator().manual_seed(self.seed))
+        for src, dst, _ in ema_map:  # each target starts as its online tower (JAX :319-322)
+            self.model.get_submodule(dst).load_state_dict(
+                self.model.get_submodule(src).state_dict())
         if self.pretrained_model:
-            state = torch.load(self.pretrained_model, map_location="cpu", weights_only=True)
-            self.model.load_state_dict(state)
-            logger.info(f"loaded pretrained weights from {self.pretrained_model}")
+            self._load_pretrained(ema_map)
         self.model.to(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"model {model_cfg.get('name')}: {n_params / 1e6:.2f}M params, "
@@ -163,8 +171,9 @@ class Engine:
         if num_layers == 0 and (opt_cfg.get("layerwise_decay") or 0):
             logger.warning("Optimizer.layerwise_decay is set but the model depth is unknown "
                            "(num_layers=0): layer decay is a no-op")
+        frozen = list(self.model.frozen_patterns()) if hasattr(self.model, "frozen_patterns") else []
         self.optimizer = build_optimizer(opt_cfg, dict(self.model.named_parameters()),
-                                         num_layers=num_layers,
+                                         frozen_patterns=frozen, num_layers=num_layers,
                                          lr_args=(self.epochs, spe, self.global_batch_size))
         logger.info(f"optimizer groups: {self.optimizer.describe()}")
 
@@ -189,17 +198,52 @@ class Engine:
             self.train_step = TrainStep(self.lr_fn, criterion=self.criterion,
                                         grad_clip=self.grad_clip, scaler=self.scaler,
                                         accum_steps=self.accum_steps,
-                                        full_ema_decay=self.full_ema_decay)
+                                        full_ema_decay=self.full_ema_decay,
+                                        ema_pairs=ema_pairs_of(self.model, ema_map,
+                                                               self.total_steps))
         topk = sorted({k for m in self.metric_fns for k in m.topk}) or [1]
         self.eval_metrics_step = EvalMetricsStep(topk)
         self.eval_metrics_step_ema = (EvalMetricsStep(topk, use_ema=True)
                                       if self.full_ema_decay else None)
-        loop_name = g.get("train_loop", None) or "ClassificationTrainingEpochLoop"
+        loop_name = g.get("train_loop", None) or (
+            "ClassificationTrainingEpochLoop" if self.criterion is not None
+            else "ContrastiveLearningTrainingEpochLoop")
         if loop_name not in loops_mod.LOOPS:
             raise NotImplementedError(f"train loop {loop_name!r} is not ported yet")
         self.train_loop = loops_mod.LOOPS[loop_name](self) if mode == "train" else None
         self.eval_loop = (loops_mod.ClassificationEvaluationLoop(self)
                           if self.eval_dataloader is not None else None)
+
+    def _load_pretrained(self, ema_map: list) -> None:
+        """`Global.pretrained_model` (a torch state_dict file) into the model.
+        A key the model lacks raises, and so does a missing one outside the
+        EMA targets; a target tower takes from its online tower what the file
+        did not fill (JAX `engine.py:340-381`), and keeps what it did."""
+        state = torch.load(self.pretrained_model, map_location="cpu", weights_only=True)
+        missing, unexpected = self.model.load_state_dict(state, strict=False)
+        if unexpected:
+            raise KeyError(f"{self.pretrained_model}: keys the model does not have: "
+                           f"{sorted(unexpected)[:5]}")
+        missing = set(missing)
+        for src, dst, _ in ema_map:
+            src_state = self.model.get_submodule(src).state_dict()
+            fill = {k: src_state[k] for k in src_state if f"{dst}.{k}" in missing}
+            if fill:
+                logger.info(f"pretrained file leaves {len(fill)}/{len(src_state)} entries of "
+                            f"EMA tower '{dst}' unfilled: re-syncing them from '{src}'")
+                self.model.get_submodule(dst).load_state_dict(fill, strict=False)
+            missing -= {f"{dst}.{k}" for k in fill}
+        if missing:
+            raise KeyError(f"{self.pretrained_model} does not fill {sorted(missing)[:5]}")
+        logger.info(f"loaded pretrained weights from {self.pretrained_model}")
+
+    def prepare_batch(self, batch):
+        """A loader batch as the train step takes it: the SSL loops strip the
+        label of ((view1, view2), label) batches (JAX `engine.py:511-518`)."""
+        if (self.criterion is None and isinstance(batch, (tuple, list)) and len(batch) == 2
+                and isinstance(batch[0], (tuple, list)) and getattr(batch[1], "ndim", 2) <= 1):
+            return batch[0]
+        return batch
 
     def train(self) -> None:
         if self.mode != "train":

@@ -135,7 +135,7 @@ class TrainingEpochLoop:
         tic = time.perf_counter()
         for i, batch in enumerate(e.train_dataloader, start=skip_steps):
             self.time_info["reader_cost"].update(time.perf_counter() - tic)
-            metrics = e.train_step(e.state, to_device(batch, e.device))
+            metrics = e.train_step(e.state, to_device(e.prepare_batch(batch), e.device))
             if (i + 1) % e.print_batch_step == 0:
                 # the log line reads the metrics, which waits for the step to finish
                 m = {k: float(v) for k, v in metrics.items()}
@@ -168,6 +168,15 @@ class TrainingEpochLoop:
 
 class ClassificationTrainingEpochLoop(TrainingEpochLoop):
     """The criterion-driven loop: the engine builds its step with the criterion."""
+
+
+class ContrastiveLearningTrainingEpochLoop(TrainingEpochLoop):
+    """The label-free loop: the model returns its loss dict; the views go to
+    the device as they come from the loader (uint8 NHWC)."""
+
+
+class SimSiamTrainingEpochLoop(ContrastiveLearningTrainingEpochLoop):
+    """The JAX package's alias: its param-group optimizer needs no loop of its own."""
 
 
 class ClassificationEvaluationLoop:
@@ -225,5 +234,7 @@ class ClassificationEvaluationLoop:
 LOOPS = {
     "TrainingEpochLoop": TrainingEpochLoop,
     "ClassificationTrainingEpochLoop": ClassificationTrainingEpochLoop,
+    "ContrastiveLearningTrainingEpochLoop": ContrastiveLearningTrainingEpochLoop,
+    "SimSiamTrainingEpochLoop": SimSiamTrainingEpochLoop,
     "ClassificationEvaluationLoop": ClassificationEvaluationLoop,
 }

@@ -1,0 +1,82 @@
+"""Normalization: `l2_normalize` and a BatchNorm with flax's semantics.
+
+Counterpart of `passl_tpu/nn/norm.py:26-28` (`l2_normalize`) and of flax's
+`nn.BatchNorm` as `passl_tpu/models/resnet.py:73-79` and
+`passl_tpu/models/necks.py` build it (`momentum=0.9, epsilon=1e-5`).
+
+`BatchNorm` normalizes over every axis but the channel axis 1 (NCHW
+activations, in channels-last memory inside the ResNet, or [N, C]
+features in the necks). As flax's, it takes its statistics in float32
+whatever the compute dtype, normalizes in float32, and returns the compute
+dtype; in training it normalizes with the batch statistics and updates
+`ra = momentum * ra + (1 - momentum) * batch` with the batch's biased
+variance; in eval (`model.eval()`, flax's `use_running_average`) it
+normalizes with the running statistics. The arithmetic is PyTorch's
+`F.batch_norm` (cuDNN on the card), which updates the running variance
+with the unbiased batch variance; the update is put back on flax's biased
+variance from the few per-channel numbers. Flax takes its variance as
+E[x^2] - E[x]^2 and PyTorch as E[(x - E[x])^2]: the two differ by f32
+rounding.
+
+There is no `num_batches_tracked`: flax keeps no such counter, and
+`utils.convert` fills every buffer from the `batch_stats` tree.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, epsilon: float = 1e-12) -> torch.Tensor:
+    """x / sqrt(max(sum(x^2), epsilon)) along `dim`."""
+    sq = torch.sum(torch.square(x), dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp(sq, min=epsilon))
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum, epsilon, use_bias, use_scale, dtype)` over
+    channel axis 1; parameters `weight` (flax `scale`) and `bias`, buffers
+    `running_mean` and `running_var` (flax `batch_stats` `mean`, `var`), all f32."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, epsilon: float = 1e-5,
+                 use_bias: bool = True, use_scale: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(num_features)) if use_scale else None
+        self.bias = nn.Parameter(torch.empty(num_features)) if use_bias else None
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+        with torch.no_grad():
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.epsilon)
+        # F.batch_norm updates (and autograd keeps) copies of the statistics
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0 - self.momentum,
+                         self.epsilon)
+        # it took ra + (1 - m) (n / (n - 1) var - ra) with the unbiased variance;
+        # put the variance term back on the biased one
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            step = (var - self.momentum * self.running_var) * ((n - 1) / n)
+            self.running_var.mul_(self.momentum).add_(step)
+            self.running_mean.copy_(mean)
+        return y

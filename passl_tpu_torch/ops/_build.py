@@ -125,4 +125,10 @@ def load() -> ctypes.CDLL:
     lib.passl_flash_attention_dkv.restype = i32
     lib.passl_flash_attention_dq.argtypes = [vp] * 8 + geometry
     lib.passl_flash_attention_dq.restype = i32
+    # img, draws, chan, out, N, H, W, C, taps, blur_prob, solarize_prob, smin, span, threshold,
+    # device, stream
+    lib.passl_fused_augment.argtypes = [vp] * 4 + [i32] * 5 + [f32] * 5 + [i32, vp]
+    lib.passl_fused_augment.restype = i32
+    lib.passl_fused_augment_band.argtypes = [i32] * 4
+    lib.passl_fused_augment_band.restype = i32
     return lib

@@ -12,9 +12,12 @@ the global step times its `lr_scale` (zero while `step < freeze_steps`), as
 
 Rules: `AdamW` (decoupled weight decay, the JAX rule's
 `p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`) runs as
-`torch.optim.AdamW` over the groups; `Frozen` leaves its parameters as they
-are. The JAX package's other rules (Momentum, MomentumLARS, MomentumLARC,
-Adan, Adafactor) are not ported yet and raise.
+`torch.optim.AdamW` over the groups; `Momentum` (L2 weight decay
+`g + wd * p`, `buf = m * buf + g`, optional Nesterov) and `MomentumLARS`
+(`passl_tpu/optimizer/transforms.py:84-135`; its v110 name
+`LarsMomentumOptimizer` too) run as `MomentumLARS` below; `Frozen` gets no
+state and no update. The JAX package's other rules (MomentumLARC, Adan,
+Adafactor) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import torch
 
 LrFn = Callable[[int], float]
-RULES = ("AdamW", "Frozen")
+RULES = ("AdamW", "Momentum", "MomentumLARS", "LarsMomentumOptimizer", "Frozen")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,11 +69,80 @@ def _adamw_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return {"betas": (beta1, beta2), "eps": eps}
 
 
+def _momentum_kwargs(name: str, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The Momentum / MomentumLARS hyperparameters under the JAX rule
+    factory's aliases (`lars_coeff`, `trust_coeff`, `use_nesterov`, `eps`)."""
+    alias = {"momentum": "momentum", "use_nesterov": "nesterov", "nesterov": "nesterov",
+             "lars_coeff": "trust_coefficient", "trust_coefficient": "trust_coefficient",
+             "trust_coeff": "trust_coefficient", "eps": "epsilon", "epsilon": "epsilon",
+             "always_adapt": "always_adapt"}
+    accepted = ({"momentum", "nesterov"} if name == "Momentum" else
+                {"momentum", "trust_coefficient", "epsilon", "always_adapt"})
+    out = {alias[k]: v for k, v in cfg.items() if alias.get(k) in accepted}
+    return {"lars": name != "Momentum", **out}
+
+
+class MomentumLARS(torch.optim.Optimizer):
+    """SGD with momentum and L2 weight decay, with LARS's layer-wise trust
+    ratio when `lars` is set: per tensor of ndim > 1 (every tensor with
+    `always_adapt`), q = tc |p| / (|g| + wd |p| + eps), or 1 when |p| or the
+    denominator is 0; then g <- (g + wd p) q, buf <- m buf + g, p <- p - lr buf
+    (Nesterov: p <- p - lr (g + m buf)), the momentum buffer in f32. Each
+    group's `lr` and `weight_decay` are its own."""
+
+    def __init__(self, params, momentum: float = 0.9, trust_coefficient: float = 0.001,
+                 epsilon: float = 0.0, always_adapt: bool = False, nesterov: bool = False,
+                 lars: bool = True):
+        defaults = dict(lr=0.0, weight_decay=0.0, momentum=float(momentum),
+                        trust_coefficient=float(trust_coefficient), epsilon=float(epsilon),
+                        always_adapt=bool(always_adapt), nesterov=bool(nesterov), lars=lars)
+        super().__init__(params, defaults)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            lr, wd, m = group["lr"], group["weight_decay"], group["momentum"]
+            grads = [p.grad.float() for p in params]
+            if wd:
+                grads = list(torch._foreach_add(grads, params, alpha=wd))
+            if group["lars"]:
+                adapt = [i for i, p in enumerate(params) if p.dim() > 1 or group["always_adapt"]]
+                if adapt:
+                    p_norm = torch.stack(torch._foreach_norm([params[i] for i in adapt]))
+                    g_norm = torch.stack(torch._foreach_norm([p.grad.float() for p in
+                                                              (params[i] for i in adapt)]))
+                    denom = g_norm + wd * p_norm + group["epsilon"]
+                    ok = (p_norm > 0) & (denom > 0)
+                    q = torch.where(ok, group["trust_coefficient"] * p_norm
+                                    / torch.where(ok, denom, torch.ones_like(denom)),
+                                    torch.ones_like(denom))
+                    scaled = torch._foreach_mul([grads[i] for i in adapt], list(q.unbind()))
+                    for i, g in zip(adapt, scaled):
+                        grads[i] = g
+            bufs = []
+            for p, g in zip(params, grads):
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p, dtype=torch.float32)
+                bufs.append(state["momentum_buffer"])
+            torch._foreach_mul_(bufs, m)
+            torch._foreach_add_(bufs, grads)
+            if group["nesterov"]:
+                torch._foreach_add_(params, torch._foreach_add(grads, bufs, alpha=m), alpha=-lr)
+            else:
+                torch._foreach_add_(params, bufs, alpha=-lr)
+        return None
+
+
 class ParamGroupOptimizer:
     """Static groups over named parameters; `step(lr, step)` updates them."""
 
     def __init__(self, groups: Sequence[Group], assignment: Dict[str, int],
-                 named_params: Mapping[str, torch.nn.Parameter], rule_kwargs: Dict[str, Any]):
+                 named_params: Mapping[str, torch.nn.Parameter], rule_kwargs: Dict[str, Any],
+                 rule: str = "AdamW"):
         self.groups = list(groups)
         self.assignment = dict(assignment)
         torch_groups = []
@@ -81,8 +153,11 @@ class ParamGroupOptimizer:
                 continue
             torch_groups.append({"params": params, "weight_decay": g.weight_decay, "lr": 0.0})
             self._stepped.append(g)
-        self.torch_optimizer = (torch.optim.AdamW(torch_groups, lr=0.0, **rule_kwargs)
-                                if torch_groups else None)
+        self.torch_optimizer = None
+        if torch_groups:
+            self.torch_optimizer = (torch.optim.AdamW(torch_groups, lr=0.0, **rule_kwargs)
+                                    if rule == "AdamW" else MomentumLARS(torch_groups,
+                                                                         **rule_kwargs))
 
     def group_lr(self, g: Group, lr: float, step: int) -> float:
         glr = (g.lr_fn(step) if g.lr_fn is not None else lr) * g.lr_scale
@@ -185,5 +260,5 @@ def build_optimizer(config: Dict[str, Any], named_params: Mapping[str, torch.nn.
             gname += f"|layer{lid}"
         assignment[path] = get_group(gname, wd, lr_scale, freeze_steps, lr_fn)
 
-    return ParamGroupOptimizer(groups, assignment, named_params,
-                               _adamw_kwargs(cfg) if name == "AdamW" else {})
+    kwargs = _adamw_kwargs(cfg) if name == "AdamW" else _momentum_kwargs(name, cfg)
+    return ParamGroupOptimizer(groups, assignment, named_params, kwargs, rule=name)

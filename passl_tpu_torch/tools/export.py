@@ -40,6 +40,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args = parse_args(argv)
     config = cfg_util.get_config(args.config, overrides=args.override, show=True)
     g = config.get("Global", {})
+    if not config.get("Loss") and "Train" in config.get("DataLoader", {}):
+        # the JAX engine's refusal (passl_tpu/engine/engine.py:553-559)
+        raise ValueError(
+            "export targets inference models (logits/features). For an SSL pretrain config, "
+            "first extract the backbone (passl_tpu.tools.extract_weights) and export a "
+            "Classification/LinearProbe config over it.")
     output_dir = g.get("output_dir", "./output")
     logger.init_logger(log_file=os.path.join(output_dir, "export.log"))
     checkpoint = io.resolve_checkpoint(g["checkpoint"]) if g.get("checkpoint") else None

@@ -4,8 +4,10 @@ Names: a flax module path `blocks_3/attn/qkv/kernel` becomes
 `blocks.3.attn.qkv.weight` (a module name ending in `_<i>` is item i of a
 ModuleList), `kernel` and LayerNorm's `scale` become `weight`, other leaf
 names stay. Layouts: a Dense kernel `[in, out]` becomes `[out, in]`, a Conv
-kernel HWIO becomes OIHW. Every flax leaf must land on a torch parameter
-of the same shape, and every torch parameter must be filled.
+kernel HWIO becomes OIHW. BatchNorm statistics come from the flax
+`batch_stats` tree: `mean` becomes `running_mean` and `var` `running_var`.
+Every flax leaf must land on a torch parameter or buffer of the same shape,
+and every entry of the model's `state_dict` must be filled.
 """
 from __future__ import annotations
 
@@ -29,10 +31,17 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
-def _torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_name(path: str, arr: np.ndarray, stats: bool = False) -> tuple[str, np.ndarray]:
     *modules, leaf = path.split("/")
     modules = [_LIST_ITEM.sub(r".\1", m) for m in modules]
-    if leaf == "kernel":
+    if stats:
+        if leaf not in _STATS:
+            raise ValueError(f"batch_stats leaf {path!r}: expected mean or var")
+        leaf = _STATS[leaf]
+    elif leaf == "kernel":
         leaf = "weight"
         if arr.ndim == 2:
             arr = arr.T  # Dense [in, out] -> Linear [out, in]
@@ -45,12 +54,16 @@ def _torch_name(path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     return ".".join([*modules, leaf]), arr
 
 
-def flax_to_torch(params: Mapping, model: torch.nn.Module) -> dict[str, torch.Tensor]:
-    """params: the flax `params` tree as numpy arrays -> a state_dict for `model`."""
+def flax_to_torch(params: Mapping, model: torch.nn.Module,
+                  batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
+    """params (and a model with BatchNorm's `batch_stats`): the flax trees as
+    numpy arrays -> a state_dict for `model`."""
     target = model.state_dict()
     out: dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params).items():
-        key, arr = _torch_name(path, arr)
+    leaves = [(p, a, False) for p, a in _flatten(params).items()]
+    leaves += [(p, a, True) for p, a in _flatten(batch_stats or {}).items()]
+    for path, arr, stats in leaves:
+        key, arr = _torch_name(path, arr, stats)
         if key not in target:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
         if tuple(arr.shape) != tuple(target[key].shape):

@@ -88,3 +88,51 @@ def test_cait_s24_names_and_shapes_map_onto_the_port():
     assert mapped == target
     n_flax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes))
     assert sum(int(np.prod(s)) for s in target.values()) == n_flax == 46_915_816
+
+
+# ---------------------------------------------- BatchNorm statistics (batch_stats)
+
+
+@pytest.fixture(scope="module")
+def flax_resnet():
+    from passl_tpu.models import resnet as jax_resnet
+
+    kw = dict(block="basic", layers=(1, 1, 1, 1), num_classes=4, cifar_stem=True)
+    model = jax_resnet.ResNet(**kw)
+    init = jax.jit(lambda x: model.init(jax.random.PRNGKey(0), x, train=True))
+    variables = jax.device_get(init(jnp.zeros((2, 8, 8, 3))))
+    return kw, variables["params"], variables["batch_stats"]
+
+
+def test_batch_stats_fill_every_buffer(flax_resnet):
+    from passl_tpu_torch.models.resnet import ResNet
+
+    kw, params, stats = flax_resnet
+    model = ResNet(**kw)
+    stats = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.5, stats)  # not the init values
+    state = flax_to_torch(params, model, stats)
+    assert set(state) == set(model.state_dict())
+    assert len(state) == len(_flatten(params)) + len(_flatten(stats))
+    model.load_state_dict(state, strict=True)
+    np.testing.assert_array_equal(model.layer2[0].downsample_bn.running_mean.numpy(),
+                                  stats["layer2_0"]["downsample_bn"]["mean"])
+    np.testing.assert_array_equal(model.bn1.running_var.numpy(), stats["bn1"]["var"])
+    np.testing.assert_array_equal(model.bn1.weight.detach().numpy(), params["bn1"]["scale"])
+    assert not any("num_batches_tracked" in k for k in state)
+
+
+def test_missing_batch_stats_raise(flax_resnet):
+    from passl_tpu_torch.models.resnet import ResNet
+
+    kw, params, _ = flax_resnet
+    with pytest.raises(KeyError, match="running_mean"):
+        flax_to_torch(params, ResNet(**kw))
+
+
+def test_unknown_batch_stats_leaf_raises(flax_resnet):
+    from passl_tpu_torch.models.resnet import ResNet
+
+    kw, params, stats = flax_resnet
+    bad = {**stats, "bn1": {**stats["bn1"], "count": np.zeros(64, np.float32)}}
+    with pytest.raises(ValueError, match="expected mean or var"):
+        flax_to_torch(params, ResNet(**kw), bad)

@@ -214,7 +214,7 @@ def test_eval_counts_a_ragged_tail_exactly(tmp_path):
     ("DistributedStrategy={'sharding_degree': 2}", NotImplementedError),
     ("DistributedStrategy={'recompute': {'layerlist_interval': 1}}", NotImplementedError),
     ("Global.hooks=[{'name': 'x'}]", NotImplementedError),
-    ("Optimizer.name='MomentumLARS'", NotImplementedError),
+    ("Optimizer.name='MomentumLARC'", NotImplementedError),
     ("Global.checkpoint='./output/latest.ckpt'", NotImplementedError),
 ])
 def test_engine_refuses_what_it_does_not_port(tmp_path, override, error):

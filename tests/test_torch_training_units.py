@@ -299,8 +299,8 @@ def test_adamw_updates_match_jax():
 
 
 def test_optimizer_refuses_unported_rules():
-    with pytest.raises(NotImplementedError, match="MomentumLARS"):
-        optimizer.build_optimizer({"name": "MomentumLARS"}, {"w": torch.nn.Parameter(torch.ones(2))})
+    with pytest.raises(NotImplementedError, match="MomentumLARC"):
+        optimizer.build_optimizer({"name": "MomentumLARC"}, {"w": torch.nn.Parameter(torch.ones(2))})
 
 
 def test_frozen_group_is_left_as_it_is():
