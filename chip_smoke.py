@@ -18,12 +18,14 @@ Run from the repo root:  python3 chip_smoke.py
 5. Holds the window-attention forward kernel against its plain version at
    Swin-T's four stage shapes (serving batch 32, training batch 128), with no
    mask, one mask for every group, d = 59 and 64, and Swin-B's head counts,
-   in bf16 and f32, and times both at Swin-T's stage 1 with 128 images.
+   in bf16 and f32, and times both at each of Swin-T's four stage shapes with
+   128 images in bf16 (stage 1 in f32 too), and the stages weighted by their
+   blocks as one training step's time in the kernel.
 6. The same for the window-attention backward kernel (dq, dk, dv, and dbias
    within 1e-4 of its largest entry), checking that two launches are bitwise
    equal. Both window phases time F.scaled_dot_product_attention beside the
    kernels, with q as [B/nWm, nWm, h, L, d] and bias + mask as a float
-   attn_mask [nWm, h, L, L].
+   attn_mask [nWm, h, L, L] (bias alone at stage 4, which has no mask).
 6b. Holds the flash-attention forward kernel (out, m, l) and its dK/dV and
    dQ backward kernels against their plain versions at the ViT family's
    shapes (ViT-B/16 at 32 and 128 images in bf16 and f32, ViT-B/32, ViT-B/16
@@ -61,7 +63,8 @@ Run from the repo root:  python3 chip_smoke.py
    (the recipe's per-card batch), 8 steps, with Model.attn_impl=fused: 12
    forward and 12 backward launches per step, first-step gradients against
    the einsum path at softmax_dtype=float32 (overall and for each of the 12
-   relative_position_bias_tables), resume, eval.
+   relative_position_bias_tables), resume, eval; and the device busy time of
+   one profiled step on the fused path and on the einsum path.
 11. Serves ViT-B/16 at 224 from configs/classification/vit_base_patch16_224_in1k.yaml
    with Model.attn_impl=flash as Swin-T is served: 12 flash forward
    launches per forward, and the same weights through the einsum path in
@@ -184,6 +187,10 @@ WATTN_SHAPES = [
     (1024, 4, 98, 32, 32), (32, 32, 49, 32, None),
 ]
 WATTN_TIMED = (4096, 3, 98, 32, 32)  # Swin-T stage 1, 128 images: timed in bf16 and f32
+# Swin-T's four stages at 128 images (window-attention blocks per stage): each
+# timed in bf16, and weighted by its blocks into the kernels' time per step
+WATTN_STAGES = {(4096, 3, 98, 32, 32): 2, (1024, 6, 98, 32, 8): 2, (256, 12, 98, 32, 2): 6,
+                (128, 24, 49, 32, None): 2}
 DBIAS_TOL = 1e-4  # dbias: f32 sums over B groups in another order, of the largest entry
 VIT_CONFIG = os.path.join(REPO, "configs", "classification", "vit_base_patch16_224_in1k.yaml")
 VIT_NAME = "ViT_base_patch16_224"
@@ -389,13 +396,14 @@ def _wattn_inputs(shape, dtype, seed):
 def _wattn_sdpa(q, k, v, bias, mask, do=None):
     """The window function as one F.scaled_dot_product_attention call: q, k, v
     as [B/nWm, nWm, h, L, d] and bias + mask as a float attn_mask [nWm, h, L,
-    L] at q's type. Returns the call, or with `do` the call's backward (dq, dk,
-    dv and the mask's gradient) on a graph kept for repeated timing."""
+    L] at q's type (nWm = 1 and bias alone without a mask). Returns the call,
+    or with `do` the call's backward (dq, dk, dv and the mask's gradient) on a
+    graph kept for repeated timing."""
     b, h, l, d = q.shape
-    n_mask = mask.shape[0]
+    n_mask = 1 if mask is None else mask.shape[0]
     view = (b // n_mask, n_mask, h, l, d)
     q5, k5, v5 = (t.detach().reshape(view).clone() for t in (q, k, v))
-    attn_mask = (bias[None] + mask[:, None]).to(q.dtype)
+    attn_mask = (bias[None] if mask is None else bias[None] + mask[:, None]).to(q.dtype)
     if do is None:
         return lambda: F.scaled_dot_product_attention(q5, k5, v5, attn_mask=attn_mask)
     leaves = [t.requires_grad_() for t in (q5, k5, v5, attn_mask)]
@@ -415,6 +423,21 @@ def _wattn_cases():
     return [(shape, dtype) for shape in WATTN_SHAPES for dtype in (torch.bfloat16, torch.float32)]
 
 
+def _wattn_timed(shape, dtype) -> bool:
+    """Every Swin-T stage in bf16; stage 1 in f32 too."""
+    return shape == WATTN_TIMED or (shape in WATTN_STAGES and dtype == torch.bfloat16)
+
+
+def _wattn_step_ms(results: dict, tag: str) -> dict:
+    """A Swin-T training step's time in one window kernel: each stage's
+    measured time (kernel, plain, SDPA, bound) times its blocks."""
+    step = {key: sum(n * results[(shape, torch.bfloat16)][key] for shape, n in WATTN_STAGES.items())
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[{tag}] Swin-T step at 128 images, bf16, {sum(WATTN_STAGES.values())} launches "
+        f"weighted by stage: {_fmt(step)}")
+    return step
+
+
 def phase_wattn() -> dict:
     results = {}
     with torch.inference_mode():
@@ -427,7 +450,7 @@ def phase_wattn() -> dict:
             tol = TOL[dtype]
             torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
             rec = {"max_abs_err": (out.float() - ref.float()).abs().max().item(), "tol": tol}
-            if shape == WATTN_TIMED:  # read q, k, v and write out once; q k^T and p v
+            if _wattn_timed(shape, dtype):  # read q, k, v and write out once; q k^T and p v
                 rec.update(_time_pair(lambda: fused_window_attention(q, k, v, bias, mask),
                                       lambda: window_attention_ref(q, k, v, bias, mask),
                                       *_wattn_bytes_flops(q, bias, mask, 4, 2), dtype,
@@ -436,6 +459,7 @@ def phase_wattn() -> dict:
             log(f"[wattn] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
             del q, k, v, bias, mask, out, ref
     torch.cuda.empty_cache()
+    _wattn_step_ms(results, "wattn")
     return results
 
 
@@ -459,7 +483,7 @@ def phase_wattn_bwd() -> dict:
         again = fused_window_attention_bwd(q, k, v, bias, mask, do)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"wattn-bwd at {shape} {dtype}: two launches differ")
-        if shape == WATTN_TIMED:
+        if _wattn_timed(shape, dtype):
             # read q, k, v, do and write dq, dk, dv once (and dbias, h L^2 f32,
             # counted with the bias); recompute q k^T, then p^T do, do v^T,
             # ds k and ds^T q
@@ -472,6 +496,7 @@ def phase_wattn_bwd() -> dict:
             ", repeatable bitwise")
         del q, k, v, bias, mask, do, got, want, again
     torch.cuda.empty_cache()
+    _wattn_step_ms(results, "wattn-bwd")
     return results
 
 
@@ -617,8 +642,9 @@ def _export(config: str, out_dir: str, *overrides: str) -> None:
     export.main(argv)
 
 
-def _profile(fn) -> str:
-    """`fn()` once under torch.profiler: device busy time against its wall time."""
+def _profile(fn, rec: Optional[dict] = None) -> str:
+    """`fn()` once under torch.profiler: device busy time against its wall time
+    (also into `rec` as busy_ms and wall_ms when given)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -635,6 +661,8 @@ def _profile(fn) -> str:
             count += 1
     busy = sum(by_name.values())
     check(busy > 0, "the profiler saw no device time")
+    if rec is not None:
+        rec.update(busy_ms=busy / 1e3, wall_ms=wall_us / 1e3)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return (f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
             f"({100 * (1 - busy / wall_us):.1f}% idle), {count} kernels and copies; top: "
@@ -835,7 +863,21 @@ VIT_TRAIN = TrainSpec("ViT-B/16", VIT_CONFIG, VIT_TRAIN_BATCH, VIT_BLOCKS, VIT_B
                       lambda n: n.endswith("attn.qkv.weight"))
 
 
-def _train_config(spec: TrainSpec, out_dir: str, *overrides: str):
+# loader worker processes of the timed runs; the one-step resume and the eval
+# load in the main thread (no workers, no prefetch thread), since each pool
+# forks a process that holds CUDA and profiler threads, where a fork can
+# deadlock a worker, and a prefetch thread that runs the transforms itself
+# can be inside C++ when the interpreter exits, which then aborts
+WORKERS = 6  # leaves cores to the training process on an 8-core host
+
+
+def _loader_threads(loader: dict, workers: int) -> None:
+    loader["num_workers"] = workers
+    if not workers:
+        loader["prefetch"] = 0
+
+
+def _train_config(spec: TrainSpec, out_dir: str, *overrides: str, workers: int = WORKERS):
     """The in1k config with synthetic images (ImageNet is not on the card's
     machine; the config's own transforms stay), the spec's batch, TRAIN_STEPS steps."""
     config = cfg_util.get_config(spec.config, overrides=[
@@ -846,7 +888,7 @@ def _train_config(spec: TrainSpec, out_dir: str, *overrides: str):
         dl["dataset"] = {"name": "SyntheticDataset", "size": size, "image_size": IMG,
                          "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
         dl["sampler"]["batch_size"] = bs
-        dl["loader"]["num_workers"] = 6  # leaves cores to the training process on an 8-core host
+        _loader_threads(dl["loader"], workers)
     return config
 
 
@@ -972,17 +1014,21 @@ def phase_train(spec: TrainSpec) -> dict:
         check(_launches(spec) == out["launches"], f"{spec.tag}: the plain path launched a kernel")
         out["plain"] = _step_report(f"{spec.tag} bf16 plain path ", e_p, spec.batch)
 
+        busy_k, busy_p = {}, {}
         log(f"[profile] {spec.tag} train step, bf16 kernel path: "
-            f"{_profile(lambda: float(e_k.train_step(e_k.state, batch)['loss']))}")
+            f"{_profile(lambda: float(e_k.train_step(e_k.state, batch)['loss']), busy_k)}")
         log(f"[profile] {spec.tag} train step, bf16 plain path:  "
-            f"{_profile(lambda: float(e_p.train_step(e_p.state, batch)['loss']))}")
+            f"{_profile(lambda: float(e_p.train_step(e_p.state, batch)['loss']), busy_p)}")
+        out["busy_ms"] = {"kernel": busy_k["busy_ms"], "plain": busy_p["busy_ms"]}
+        log(f"[train] {spec.tag} device busy per step: kernel path {busy_k['busy_ms']:.3f} ms, "
+            f"plain path {busy_p['busy_ms']:.3f} ms")
         del e_k, e_p
         torch.cuda.empty_cache()
 
         # resume: one more step from the checkpoint, then evaluate it
         e_r = Engine(_train_config(spec, os.path.join(tmp, "resume"), *spec.kernel,
                                    f"Global.checkpoint={ckpt}",
-                                   f"Global.max_train_step={TRAIN_STEPS + 1}"),
+                                   f"Global.max_train_step={TRAIN_STEPS + 1}", workers=0),
                      mode="train", device="cuda")
         e_r.train()
         hist = e_r.train_loop.history
@@ -992,7 +1038,7 @@ def phase_train(spec: TrainSpec) -> dict:
             f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
         del e_r
         e_v = Engine(_train_config(spec, os.path.join(tmp, "eval"), *spec.kernel,
-                                   f"Global.checkpoint={ckpt}"),
+                                   f"Global.checkpoint={ckpt}", workers=0),
                      mode="eval", device="cuda")
         top1 = e_v.eval()
         m = e_v.eval_loop.last_metrics
@@ -1138,7 +1184,7 @@ BYOL_BATCH = 128  # per view: the recipe's 4,096 over 32 cards
 BYOL_GRAD_PAIRS = 4  # the f32 card-vs-CPU first step
 
 
-def _byol_config(out_dir: str, batch: int, *overrides: str):
+def _byol_config(out_dir: str, batch: int, *overrides: str, workers: int = WORKERS):
     """The in1k config with synthetic images in place of ImageNet (the
     config's own two-view transforms stay), `batch` pairs, TRAIN_STEPS steps."""
     config = cfg_util.get_config(BYOL_CONFIG, overrides=[
@@ -1148,7 +1194,7 @@ def _byol_config(out_dir: str, batch: int, *overrides: str):
     dl["dataset"] = {"name": "SyntheticDataset", "size": 1024, "image_size": IMG,
                      "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
     dl["sampler"]["batch_size"] = batch
-    dl["loader"]["num_workers"] = 6  # leaves cores to the training process on an 8-core host
+    _loader_threads(dl["loader"], workers)
     return config
 
 
@@ -1304,7 +1350,7 @@ def phase_train_byol() -> dict:
         torch.cuda.empty_cache()
         e_r = Engine(_byol_config(os.path.join(tmp, "resume"), BYOL_BATCH,
                                   f"Global.checkpoint={ckpt}",
-                                  f"Global.max_train_step={TRAIN_STEPS + 1}"),
+                                  f"Global.max_train_step={TRAIN_STEPS + 1}", workers=0),
                      mode="train", device="cuda")
         e_r.train()
         hist = e_r.train_loop.history

@@ -30,6 +30,7 @@
 // statistics reduce over the 4 threads of a quad.
 #pragma once
 
+#include "tensor_core.cuh"       // mma, pack, fragment loads, quad_reduce, zero_acc
 #include "window_attention.cuh"  // gemm, zero, half_warp_reduce, round_to, to_f32 / from_f32
 
 namespace passl_fa {
@@ -42,6 +43,14 @@ using passl_wa::kThreads;
 using passl_wa::round_to;
 using passl_wa::to_f32;
 using passl_wa::zero;
+using passl_tc::ld32;
+using passl_tc::load_a;
+using passl_tc::load_b;
+using passl_tc::load_b_trans;
+using passl_tc::mma;
+using passl_tc::pack;
+using passl_tc::quad_reduce;
+using passl_tc::zero_acc;
 
 constexpr int kTile = 64;            // rows of every q and k tile
 constexpr int kRows = kTile / kGrid; // rows of a tile per thread: 4
@@ -115,84 +124,6 @@ inline size_t mma_smem_bytes(int tiles, int dp, int extra) {
   return (size_t)tiles * kTile * (dp + 8) * 2 + (size_t)extra * 4;
 }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2], __nv_bfloat16) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2], __half) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b for one m16n8k16 step at T's precision
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  mma_16816(c, a, b, T());
-}
-
-// (x, y) rounded to T and packed, x in the low half
-template <typename T>
-__device__ __forceinline__ uint32_t pack(float x, float y);
-template <>
-__device__ __forceinline__ uint32_t pack<__nv_bfloat16>(float x, float y) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack<__half>(float x, float y) {
-  __half2 v = __floats2half2_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A operand (16 x 16) at (row0, col0) of a row-major tile s with row stride ld.
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* s, int ld, int row0, int col0,
-                                       int lane) {
-  const T* p = s + (row0 + (lane >> 2)) * ld + col0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// The B operand (16 x 8: k0.. along k, n0.. along n) of a product whose B is
-// held transposed, s[n][k], with row stride ld.
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const T* s, int ld, int n0, int k0,
-                                       int lane) {
-  const T* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// The B operand (16 x 8) at (k0, n0) of a product whose B is held as it
-// stands, s[k][n], row-major with row stride ld (16-byte aligned rows):
-// lanes 0-15 give the addresses of rows k0 .. k0 + 15, and `.trans` hands
-// each thread the column entries the fragment wants.
-template <typename T>
-__device__ __forceinline__ void load_b_trans(uint32_t (&b)[2], const T* s, int ld, int k0, int n0,
-                                             int lane) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(s + (k0 + (lane & 15)) * ld + n0));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
 // The A operand over 16 columns (chunks 2 kk and 2 kk + 1) of a [16, 64]
 // accumulator tile, rounded to T.
 template <typename T>
@@ -256,17 +187,6 @@ __device__ __forceinline__ void stage_rows16(T* dst, const T* __restrict__ src, 
     if (r < L && c < d) val = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
     *reinterpret_cast<uint4*>(dst + i * (DP + 8) + c) = val;
   }
-}
-
-// max (or sum) of v over the 4 threads of a quad, in a fixed order
-template <bool IS_MAX>
-__device__ __forceinline__ float quad_reduce(float v) {
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = IS_MAX ? fmaxf(v, o) : v + o;
-  }
-  return v;
 }
 
 }  // namespace passl_fa

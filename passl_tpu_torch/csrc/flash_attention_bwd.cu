@@ -256,12 +256,6 @@ __device__ __forceinline__ void store_rows_mma(T* __restrict__ out, const float 
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero_acc(float (&acc)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
 template <typename T, int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,

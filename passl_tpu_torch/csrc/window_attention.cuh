@@ -1,20 +1,36 @@
 // Helpers shared by the window-attention forward and backward kernels
-// (window_attention.cu, window_attention_bwd.cu).
+// (window_attention.cu, window_attention_bwd.cu), which have two paths.
 //
-// Both kernels work on one (window group, head) tile at a time: q, k, v (and
-// do) [L, d] staged in shared memory as f32, and the [L, L] scores. The
-// block's 256 threads form a 16 x 16 grid (tx = threadIdx.x % 16, ty =
-// threadIdx.x / 16); every product is an output tile of which thread
-// (ty, tx) owns rows ty + 16 a and columns tx + 16 b, summed in registers
-// over the shared operands (`gemm`). A row of an [L, L] tile is thus spread
-// over the 16 threads of one half warp, which reduce it with shuffles.
-// Operands are padded to 16 R rows and 16 RD columns with zeros, so no
-// product needs a bound check; row strides are odd (16 RD + 1, 16 R + 1),
-// so the threads of a half warp that read one column of a tile hit 16
-// different banks.
+// f32 inputs: the CUDA-core path. Both kernels work on one (window group,
+// head) tile at a time: q, k, v (and do) [L, d] staged in shared memory as
+// f32, and the [L, L] scores. The block's 256 threads form a 16 x 16 grid
+// (tx = threadIdx.x % 16, ty = threadIdx.x / 16); every product is an
+// output tile of which thread (ty, tx) owns rows ty + 16 a and columns
+// tx + 16 b, summed in registers over the shared operands (`gemm`). A row
+// of an [L, L] tile is thus spread over the 16 threads of one half warp,
+// which reduce it with shuffles. Operands are padded to 16 R rows and 16 RD
+// columns with zeros, so no product needs a bound check; row strides are
+// odd (16 RD + 1, 16 R + 1), so the threads of a half warp that read one
+// column of a tile hit 16 different banks. The flash kernels' f32 path
+// (flash_attention.cuh) uses `gemm`, `zero`, `half_warp_reduce` and the
+// 16 x 16 grid too.
+//
+// bf16 / f16 inputs: the tensor-core path (mma.sync m16n8k16, f32
+// accumulation; tensor_core.cuh). Tiles stay at the input type in shared
+// memory, [LP, DP + 8] with LP = 16 R rows and DP = 16 RD columns, zeros
+// past L and d; the 8 extra elements put the eight rows a fragment load
+// touches on different banks. A warp owns rows 16 w .. 16 w + 15 of a
+// [LP, LP] score tile (all of its columns in the forward, half of them in
+// the backward), which it keeps in registers as accumulator chunks of
+// 16 x 8: thread (g = lane / 4, t = lane % 4) holds rows 16 w + g and
+// 16 w + g + 8, columns 8 j + 2t and 8 j + 2t + 1 of chunk j. Row
+// statistics reduce over the 4 threads of a quad. A block owns one head and
+// a run of that head's groups; the next group's tiles are copied in
+// (cp.async) while the current one is computed.
 #pragma once
 
 #include "talking_heads.cuh"  // to_f32 / from_f32
+#include "tensor_core.cuh"    // mma.sync, fragment loads, cp.async
 
 namespace passl_wa {
 
@@ -143,6 +159,116 @@ inline int cols_per_thread(int d) {
   if (d <= 32) return 2;
   if (d <= 64) return 4;
   return 0;
+}
+
+// ------------------------------------------------------------ tensor cores
+
+using passl_tc::cp_async16;
+using passl_tc::load_a;
+using passl_tc::load_a_trans;
+using passl_tc::load_b;
+using passl_tc::load_b_trans;
+using passl_tc::mma;
+using passl_tc::pack;
+using passl_tc::quad_reduce;
+using passl_tc::zero_acc;
+
+// Groups per block and blocks per head for a launch of about `target`
+// blocks: a fixed function of (B, h, target).
+inline void split(int B, int h, int target, int* groups_per_block, int* blocks_per_head) {
+  int per_head = (target + h - 1) / h;
+  if (per_head > B) per_head = B;
+  if (per_head < 1) per_head = 1;
+  *groups_per_block = (B + per_head - 1) / per_head;
+  *blocks_per_head = (B + *groups_per_block - 1) / *groups_per_block;
+}
+
+// The u-th group of a head in mask-major order: the B / n_mask groups that
+// take mask m (group b takes mask b % n_mask) come one after another, so a
+// block's run of groups crosses few masks. n_mask is 1 without a mask.
+__device__ __forceinline__ int group_of(int u, int n_mask, int per_mask) {
+  const int m = u / per_mask;
+  return (u - m * per_mask) * n_mask + m;
+}
+
+// One [L, d] tile (contiguous at src) into dst [LP, DP + 8] at T, zeros
+// past L and past d. vec: 16-byte cp.async copies, in flight until
+// cp_async_wait (d % 8 == 0 and src 16-byte aligned); else element by
+// element through registers (d = 59: rows of 118 bytes).
+template <typename T, int LP, int DP>
+__device__ __forceinline__ void stage_tile(T* dst, const T* __restrict__ src, int L, int d,
+                                           bool vec) {
+  constexpr int LD = DP + 8;
+  if (vec) {
+    constexpr int V = DP / 8;
+    for (int idx = threadIdx.x; idx < LP * V; idx += blockDim.x) {
+      const int i = idx / V;
+      const int c = (idx - i * V) * 8;
+      const bool ok = i < L && c < d;
+      cp_async16(dst + i * LD + c, ok ? src + i * d + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < LP * DP; idx += blockDim.x) {
+      const int i = idx / DP;
+      const int c = idx - i * DP;
+      dst[i * LD + c] = (i < L && c < d) ? src[i * d + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// exps below this are taken as 0: 2^-60. A masked score (-100) gives e ~
+// 1e-44, a denormal, which sends expf and an IEEE division down their slow
+// paths (10x the kernel's time at Swin's masked stages); with every e and
+// p = e / sum (sum <= 128) far inside the normal range, the division below
+// needs no range check. The TPU, which has no denormals, flushes the
+// smallest of them too; a p below 2^-60 is far below one unit in the last
+// place of any sum it enters.
+constexpr float kMinExp = 8.67361737988403547e-19f;
+
+// x / d correctly rounded, as the IEEE division, for x in [2^-60, 128] and
+// d in [1, 128] given rd = 1 / d correctly rounded: Markstein's correction
+// of the quotient x rd by its exact residual. Branch-free, where the
+// division carries a range check and a slow path that keeps the compiler
+// from interleaving the 56 divisions of a thread's rows.
+__device__ __forceinline__ float div_normal(float x, float d, float rd) {
+  const float q = __fmul_rn(x, rd);
+  const float r = fmaf(-q, d, x);
+  return fmaf(r, rd, q);
+}
+
+// Rows r0 .. r0 + 15 (those below L) of the warp's [16, 8 ND] accumulator
+// tile at T into columns col0 .. of out [L, d] (contiguous): two values a
+// store where d is even, one where it is odd (rows then lose 4-byte
+// alignment).
+template <typename T, int ND>
+__device__ __forceinline__ void store_rows_mma(T* __restrict__ out, const float (&acc)[ND][4],
+                                               int r0, int L, int d, int lane, int col0 = 0) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= L) continue;
+    T* row = out + i * d;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      const int col = col0 + 8 * jd + 2 * t;
+      if ((d & 1) == 0) {
+        if (col < d) *reinterpret_cast<uint32_t*>(row + col) = pack<T>(acc[jd][2 * r], acc[jd][2 * r + 1]);
+      } else {
+        if (col < d) row[col] = from_f32<T>(acc[jd][2 * r]);
+        if (col + 1 < d) row[col + 1] = from_f32<T>(acc[jd][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// cp.async staging needs d % 8 == 0 and 16-byte aligned tiles.
+inline bool vec_ok(int d, const void* const* ptrs, int n) {
+  if (d % 8 != 0) return false;
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  }
+  return true;
 }
 
 }  // namespace passl_wa

@@ -16,6 +16,9 @@ each EMA target tower starts as a copy of its online tower before the
 optimizer is built (and, after `Global.pretrained_model`, takes from the
 online tower only what the file did not fill), the frozen patterns go to the
 optimizer, and the train step moves each target after the optimizer step.
+`Global.pretrained_model` loads as the JAX loader does: missing entries and
+shape mismatches keep the init, a `pos_embed` of another grid is resized,
+keys the model lacks are ignored.
 
 Not ported yet, and refused when the config asks for them: meshes and
 sharding (`DistributedStrategy` degrees above 1, `recompute`),
@@ -98,6 +101,7 @@ class Engine:
         self.checkpoint_path = g.get("checkpoint", None)
         self.save_on_interrupt = bool(g.get("save_on_interrupt", True))
         self.pretrained_model = g.get("pretrained_model", None)
+        self.pretrained_report = None  # what Global.pretrained_model filled (`_load_pretrained`)
         self.seed = int(g.get("seed", 42))
         rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
         random.seed(self.seed + rank)  # ambient RNGs; the loader keys its own per sample
@@ -215,27 +219,32 @@ class Engine:
                           if self.eval_dataloader is not None else None)
 
     def _load_pretrained(self, ema_map: list) -> None:
-        """`Global.pretrained_model` (a torch state_dict file) into the model.
-        A key the model lacks raises, and so does a missing one outside the
-        EMA targets; a target tower takes from its online tower what the file
-        did not fill (JAX `engine.py:340-381`), and keeps what it did."""
-        state = torch.load(self.pretrained_model, map_location="cpu", weights_only=True)
-        missing, unexpected = self.model.load_state_dict(state, strict=False)
-        if unexpected:
-            raise KeyError(f"{self.pretrained_model}: keys the model does not have: "
-                           f"{sorted(unexpected)[:5]}")
-        missing = set(missing)
+        """`Global.pretrained_model` (a torch state_dict file) into the model
+        with the JAX loader's tolerance (`utils.io.load_pretrained`); the
+        report of what the file filled stays as `pretrained_report`. An EMA
+        target tower keeps what the file filled and takes from its online
+        tower what it did not (JAX `engine.py:340-381`)."""
+        report = io.load_pretrained(self.model, self.pretrained_model)
+        self.pretrained_report = report
+        loaded = report["loaded"]
         for src, dst, _ in ema_map:
+            dst_state = self.model.get_submodule(dst).state_dict()
+            missing = [k for k in dst_state if f"{dst}.{k}" not in loaded]
+            if not missing:
+                logger.info(f"pretrained file fully covers EMA tower '{dst}': keeping its "
+                            f"loaded weights (no re-sync from '{src}')")
+                continue
             src_state = self.model.get_submodule(src).state_dict()
-            fill = {k: src_state[k] for k in src_state if f"{dst}.{k}" in missing}
-            if fill:
-                logger.info(f"pretrained file leaves {len(fill)}/{len(src_state)} entries of "
-                            f"EMA tower '{dst}' unfilled: re-syncing them from '{src}'")
-                self.model.get_submodule(dst).load_state_dict(fill, strict=False)
-            missing -= {f"{dst}.{k}" for k in fill}
-        if missing:
-            raise KeyError(f"{self.pretrained_model} does not fill {sorted(missing)[:5]}")
-        logger.info(f"loaded pretrained weights from {self.pretrained_model}")
+            orphans = [k for k in missing if k not in src_state]
+            if orphans:
+                logger.warning(f"EMA tower '{dst}': {len(orphans)} entries are in neither the "
+                               f"pretrained file nor online tower '{src}' and stay at fresh "
+                               f"init: {orphans[:5]}")
+            fill = {k: src_state[k] for k in missing if k in src_state}
+            logger.info(f"pretrained file covers {len(dst_state) - len(missing)}/{len(dst_state)} "
+                        f"entries of EMA tower '{dst}': re-syncing the {len(fill)} uncovered "
+                        f"from '{src}'")
+            self.model.get_submodule(dst).load_state_dict(fill, strict=False)
 
     def prepare_batch(self, batch):
         """A loader batch as the train step takes it: the SSL loops strip the

@@ -193,8 +193,10 @@ class ResNet(nn.Module):
 
 
 def _factory(name: str, **fixed):
+    # a config that repeats a fixed field raises TypeError, as the JAX
+    # factories (`ResNet(block=..., layers=..., **kw)`) do
     def factory(**kw) -> ResNet:
-        return ResNet(**{**fixed, **kw})
+        return ResNet(**fixed, **kw)
 
     factory.__name__ = name
     return factory

@@ -14,9 +14,12 @@ scores and softmax at `softmax_dtype`; the flash path (`attn_impl: flash`,
 the CUDA kernels of `ops/attention.py`) keeps its scores and softmax in f32
 whatever `softmax_dtype` says, as the JAX library kernel does.
 
+`interpolate_pos_embed` resizes a position embedding to another grid for
+finetuning at a new resolution, as `jax.image.resize(method="bicubic")`
+does in the JAX package; the pretrained loader (`utils/io.py`) calls it.
+
 Not ported yet, and refused: dropout (`drop_rate`, `attn_drop_rate`),
 `remat` / `remat_policy` other than the defaults, and `pipeline`.
-`interpolate_pos_embed` waits for finetuning.
 """
 from __future__ import annotations
 
@@ -34,6 +37,47 @@ from .base import MODELS, register_model
 
 DtypeLike = Union[str, torch.dtype]
 _trunc02 = functools.partial(tinit.trunc_normal_, std=0.02)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 at distances x >= 0 (`jax.image`'s
+    bicubic; torch's `F.interpolate(mode="bicubic")` takes a = -0.75)."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return torch.where(x >= 2.0, 0.0, torch.where(x >= 1.0, far, near))
+
+
+def _resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """[n_in, n_out] f32 weights of `jax.image.resize(method="bicubic")` along
+    one axis, computed as `jax/_src/image/scale.py` `compute_weight_mat` does
+    with scale n_out / n_in, no translation and antialias on: half-pixel
+    centres; when shrinking the kernel widens by n_in / n_out; each output's
+    weights sum to 1."""
+    inv = 1.0 / torch.tensor(n_out / n_in, dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
+    w = _keys_cubic(dist / torch.clamp(inv, min=1.0))
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * float(torch.finfo(torch.float32).eps)
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, new_grid: int,
+                          num_prefix: int = 1) -> torch.Tensor:
+    """Bicubic-resize the grid part of a [1, P + prefix, C] position embedding
+    to new_grid x new_grid, the prefix (class token) kept: the counterpart of
+    `passl_tpu/models/vision_transformer.py:28-38`, with `jax.image.resize`'s
+    weights (summed in float64, returned at the input's type)."""
+    prefix, grid = pos_embed[:, :num_prefix], pos_embed[:, num_prefix:]
+    old = int(round(grid.shape[1] ** 0.5))
+    c = grid.shape[-1]
+    w = _resize_weights(old, new_grid)
+    w = w.double()
+    out = torch.einsum("iy,jx,ijc->yxc", w, w, grid.reshape(old, old, c).double())
+    out = out.reshape(1, new_grid * new_grid, c).to(pos_embed.dtype)
+    return torch.cat([prefix, out], dim=1)
 HEAD_INITS = {
     "trunc_normal": _trunc02,
     "zeros": tinit.zeros_,

@@ -16,7 +16,8 @@ normalizes with the running statistics. The arithmetic is PyTorch's
 with the unbiased batch variance; the update is put back on flax's biased
 variance from the few per-channel numbers. Flax takes its variance as
 E[x^2] - E[x]^2 and PyTorch as E[(x - E[x])^2]: the two differ by f32
-rounding.
+rounding. On one value per channel in training (a [1, C] batch), where
+`F.batch_norm` raises, it takes flax's arithmetic: the output is the bias.
 
 There is no `num_batches_tracked`: flax keeps no such counter, and
 `utils.convert` fills every buffer from the `batch_stats` tree.
@@ -68,15 +69,37 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.epsilon)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._one_value_per_channel(x)
         # F.batch_norm updates (and autograd keeps) copies of the statistics
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0 - self.momentum,
                          self.epsilon)
         # it took ra + (1 - m) (n / (n - 1) var - ra) with the unbiased variance;
         # put the variance term back on the biased one
-        n = x.numel() // x.shape[1]
         with torch.no_grad():
             step = (var - self.momentum * self.running_var) * ((n - 1) / n)
             self.running_var.mul_(self.momentum).add_(step)
             self.running_mean.copy_(mean)
         return y
+
+    def _one_value_per_channel(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on one value per channel, where `F.batch_norm` raises:
+        flax's arithmetic in f32 (mean, var = max(E[x^2] - E[x]^2, 0) = 0),
+        so the output is the bias (0 without one), x gets no gradient, and
+        the running variance decays towards 0."""
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.epsilon)
+        if self.weight is not None:
+            y = y * self.weight.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        return y.to(self.compute_dtype)

@@ -4,9 +4,10 @@ Counterpart of `passl_tpu/tools/export.py` and `Engine.export`
 (`passl_tpu/engine/engine.py:544-579`), with the same `-c`/`-o` surface. It
 builds the model from the config's `Model` and `FP16` blocks alone (no
 optimizer, no data), fills it from `Global.checkpoint` (a checkpoint the
-port's trainer wrote; a JAX `.ckpt` is refused), else from
-`Global.pretrained_model` (a torch `state_dict` file, e.g. from
-`utils.convert.flax_to_torch`), else from `Global.seed`, and writes
+port's trainer wrote; a JAX `.ckpt` is refused), else from `Global.seed`
+with `Global.pretrained_model` (a torch `state_dict` file, e.g. from
+`utils.convert.flax_to_torch`) loaded over it as the JAX loader loads it
+(`utils.io.load_pretrained`), and writes
 `<Model.name>.pt` + `.json` under `Global.output_dir`.
 
 Usage:
@@ -64,13 +65,15 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         state = torch.load(checkpoint, map_location="cpu", weights_only=True)
         model.load_state_dict(state["model"])
         logger.info(f"export: loaded the trained weights of {checkpoint} (step {state['step']})")
-    elif weights:
-        model.load_state_dict(torch.load(weights, map_location="cpu", weights_only=True))
-        logger.info(f"export: loaded weights from {weights}")
     else:
-        logger.warning("export: neither Global.checkpoint nor Global.pretrained_model "
-                       "set — exporting fresh-init weights")
+        # the seed's init, then the pretrained file over it with the JAX
+        # loader's tolerance: what the file lacks or cannot fill keeps the init
         init_module(model, torch.Generator().manual_seed(int(g.get("seed", 42))))
+        if weights:
+            io.load_pretrained(model, weights)
+        else:
+            logger.warning("export: neither Global.checkpoint nor Global.pretrained_model "
+                           "set — exporting fresh-init weights")
 
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model {model_cfg.get('name')}: {n_params / 1e6:.2f}M params, "

@@ -7,6 +7,11 @@ beside a `<prefix>.states` json with the step, the save time and metrics;
 only the newest `max_num_checkpoint` `epoch_*` checkpoints are kept. The
 port writes its own format: a JAX `.ckpt` (flax msgpack) is refused.
 
+Pretrained weights (`load_pretrained`, counterpart of
+`passl_tpu/utils/io.py:198 load_pretrained_into`): a torch `state_dict`
+file, loaded with the JAX loader's tolerance for missing, extra and
+mismatched entries.
+
 Serving artifact (counterpart of `passl_tpu/utils/io.py:274 export`):
 `<name>.pt` holds the model's `state_dict` (float32 parameters), read back
 with `torch.load(weights_only=True)`. `<name>.json` holds what rebuilds the
@@ -81,6 +86,53 @@ def load_checkpoint(path: str, state, device: Optional[torch.device] = None):
     state.load_state_dict(torch.load(path, map_location=device or "cpu", weights_only=True))
     logger.info(f"resumed from {path} (step {state.step})")
     return state
+
+
+def load_pretrained(model: torch.nn.Module, path: str) -> dict:
+    """Pretrained weights (a torch `state_dict` file) into `model`, with the
+    JAX loader's rules (`passl_tpu/utils/io.py:198-271`): an entry the file
+    lacks keeps the model's init; a shape mismatch keeps the init, except a
+    `pos_embed` of another grid, which is resized bicubically to the model's;
+    keys the model lacks are ignored; each case is logged. Returns the report
+    {"loaded": the model's keys taken from the file, "missing", "mismatched",
+    "extra"}, whose "loaded" drives the EMA towers' re-sync as the JAX
+    engine's does."""
+    if path.endswith((".params", ".ckpt", ".msgpack")):
+        raise NotImplementedError(
+            f"Global.pretrained_model={path} names a flax msgpack file of the JAX package, which "
+            "the port does not read; convert it with passl_tpu_torch.utils.convert.flax_to_torch")
+    loaded = torch.load(path, map_location="cpu", weights_only=True)
+    own = model.state_dict()
+    take, missing, mismatched = {}, [], []
+    for k, v in own.items():
+        if k not in loaded:
+            missing.append(k)
+            continue
+        lv = loaded[k]
+        if tuple(lv.shape) == tuple(v.shape):
+            take[k] = lv
+        elif k.endswith("pos_embed") and lv.dim() == 3 and v.dim() == 3 and lv.shape[-1] == v.shape[-1]:
+            # finetune at a new resolution: resize the grid part
+            from ..models.vision_transformer import interpolate_pos_embed
+
+            n_prefix = 1 if (v.shape[1] - 1) ** 0.5 % 1 == 0 else 0
+            new_grid = int(round((v.shape[1] - n_prefix) ** 0.5))
+            take[k] = interpolate_pos_embed(lv.to(v.dtype), new_grid, num_prefix=n_prefix)
+            logger.info(f"pretrained load: interpolated {k} {tuple(lv.shape)} -> {tuple(v.shape)}")
+        else:
+            mismatched.append(k)
+    extra = [k for k in loaded if k not in own]
+    if missing:
+        logger.warning(f"pretrained load: {len(missing)} entries not found (kept init): "
+                       f"{missing[:5]}...")
+    if mismatched:
+        logger.warning(f"pretrained load: {len(mismatched)} shape mismatches (kept init): "
+                       f"{mismatched[:5]}")
+    if extra:
+        logger.warning(f"pretrained load: {len(extra)} unused keys in file")
+    model.load_state_dict(take, strict=False)
+    logger.info(f"loaded pretrained weights from {path}")
+    return {"loaded": set(take), "missing": missing, "mismatched": mismatched, "extra": extra}
 
 
 def export(model: torch.nn.Module, output_dir: str, name: str, model_config: dict,

@@ -136,6 +136,51 @@ def test_batchnorm_variance_keeps_the_digits_flax_fast_variance_loses():
     assert np.abs(np.asarray(mut["batch_stats"]["var"]) / truth - 1).max() > 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 8), (1, 1, 1, 8)], ids=["features", "spatial"])
+def test_batchnorm_on_one_value_per_channel_matches_flax(dtype, shape):
+    """Training on a [1, C] batch (or one 1 x 1 image): flax's variance is
+    max(E[x^2] - E[x]^2, 0) = 0, so the output is the bias, x gets no
+    gradient and the running variance decays towards 0; F.batch_norm would
+    raise there."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+
+    x = (np.random.RandomState(4).randn(*shape) * 2 + 1).astype(np.float32)
+    fm = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                       dtype=jnp.dtype(dtype))
+    variables = _randomize(jax.device_get(fm.init(jax.random.PRNGKey(0), jnp.asarray(x))), 5)
+    pm = BatchNorm(8, dtype=getattr(torch, dtype))
+    pm.load_state_dict(flax_to_torch(variables["params"], pm, variables["batch_stats"]))
+
+    def loss(xx):
+        y, mut = fm.apply(variables, xx, mutable=["batch_stats"])
+        return jnp.sum(y.astype(jnp.float32) * jnp.arange(8.0)), (y, mut)
+
+    (_, (want, mut)), gx = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(x).astype(dtype))
+    t = torch.from_numpy(x).to(getattr(torch, dtype))
+    t = t.permute(0, 3, 1, 2) if len(shape) == 4 else t
+    t.requires_grad_()
+    got = pm(t)
+    (got.float() * torch.arange(8.0).view([1, 8] + [1] * (t.dim() - 2))).sum().backward()
+    got = got.permute(0, 2, 3, 1) if len(shape) == 4 else got
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.detach().float().numpy(), np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(got.detach().float().numpy().reshape(-1),
+                                  torch.from_numpy(np.asarray(variables["params"]["bias"]))
+                                  .to(getattr(torch, dtype)).float().numpy())
+    grad = t.grad.permute(0, 2, 3, 1) if len(shape) == 4 else t.grad
+    np.testing.assert_array_equal(grad.float().numpy(), np.asarray(gx.astype(jnp.float32)))
+    assert not grad.any()
+    np.testing.assert_allclose(pm.running_mean.numpy(), np.asarray(mut["batch_stats"]["mean"]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pm.running_var.numpy(), np.asarray(mut["batch_stats"]["var"]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pm.running_var.numpy(), 0.9 * np.asarray(variables["batch_stats"]["var"]),
+                               rtol=1e-6)
+
+
 def test_batchnorm_update_uses_the_biased_variance():
     bn = BatchNorm(3)
     bn.reset_parameters()
@@ -338,6 +383,35 @@ def test_every_variant_is_registered(name):
     assert model.out_channels == (512 if name in ("resnet18", "resnet34") else 2048)
 
 
+# every (factory, fixed field) of the eight variants, with a value the
+# factory does not fix itself
+_FIXED = {"block": "bottleneck", "layers": (1, 1, 1, 1), "groups": 2, "width_per_group": 32}
+_FACTORY_FIELDS = [
+    ("resnet18", "block"), ("resnet18", "layers"), ("resnet34", "block"), ("resnet34", "layers"),
+    ("resnet50", "block"), ("resnet50", "layers"), ("resnet101", "block"),
+    ("resnet101", "layers"), ("resnet152", "block"), ("resnet152", "layers"),
+    ("wide_resnet50_2", "block"), ("wide_resnet50_2", "layers"),
+    ("wide_resnet50_2", "width_per_group"), ("wide_resnet101_2", "block"),
+    ("wide_resnet101_2", "layers"), ("wide_resnet101_2", "width_per_group"),
+    ("resnext50_32x4d", "block"), ("resnext50_32x4d", "layers"), ("resnext50_32x4d", "groups"),
+    ("resnext50_32x4d", "width_per_group"),
+]
+
+
+@pytest.mark.parametrize("name, field", _FACTORY_FIELDS)
+def test_resnet_factory_refuses_a_fixed_field_as_jax_does(name, field):
+    """A config that repeats a field the named factory fixes (`name:
+    resnext50_32x4d, groups: 1`) raises TypeError in both packages, instead
+    of building another network under the factory's name."""
+    from passl_tpu.models import build_model as jax_build_model
+
+    cfg = {"name": name, "num_classes": 0, field: _FIXED[field]}
+    with pytest.raises(TypeError):
+        jax_build_model(dict(cfg))
+    with pytest.raises(TypeError), torch.device("meta"):
+        build_model(dict(cfg))
+
+
 @pytest.mark.parametrize("kw, match", [
     ({"stem_impl": "s2d"}, "stem_impl"),
     ({"bn_impl": "ghost_grad"}, "bn_impl"),
@@ -478,6 +552,9 @@ def test_tiny_byol_tracks_the_jax_train_step(tmp_path, jax_run):
     init_file, _, batches, jax_metrics, jax_final = jax_run
     e = Engine(_config(tmp_path, *PARITY, f"Global.pretrained_model={init_file}"), mode="train",
                device="cpu")
+    # the loader tolerates a partial file: the converted one must fill every entry
+    assert e.pretrained_report["loaded"] == set(e.model.state_dict())
+    assert not e.pretrained_report["extra"]
     init = {k: v.detach().clone() for k, v in e.model.state_dict().items()}
     for b, want in zip(batches, jax_metrics):
         got = {k: float(v) for k, v in

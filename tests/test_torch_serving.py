@@ -59,7 +59,12 @@ def test_export_predict_matches_jax(tmp_path, jax_model_and_params):
     model, params = jax_model_and_params
     weights = tmp_path / "converted.pt"
     torch.save(flax_to_torch(params, CaiT(**TINY)), weights)
-    _export(tmp_path / "art", f"Global.pretrained_model={weights}")
+    art = _export(tmp_path / "art", f"Global.pretrained_model={weights}")
+    # the loader tolerates a partial file: the artifact must hold every converted entry
+    exported = torch.load(art, weights_only=True)
+    converted = torch.load(weights, weights_only=True)
+    assert set(exported) == set(converted)
+    assert all(torch.equal(exported[k], converted[k]) for k in converted)
 
     pred = Predictor(str(tmp_path / "art"), name="CaiT", transform=NORMALIZE, device="cpu")
     images = list(_images(6))

@@ -318,6 +318,9 @@ def test_tiny_swin_tracks_the_jax_train_step(tmp_path, jax_run, path):
     extra = ["Model.attn_interpret=True"] if path == "fused" else []
     e = Engine(_config(tmp_path, *PARITY, *extra, f"Global.pretrained_model={init_file}"),
                mode="train", device="cpu")
+    # the loader tolerates a partial file: the converted one must fill every entry
+    assert e.pretrained_report["loaded"] == set(e.model.state_dict())
+    assert not e.pretrained_report["extra"]
     init = {k: v.detach().clone() for k, v in e.model.state_dict().items()}
     for b, want in zip(batches, jax_metrics):
         got = {k: float(v) for k, v in e.train_step(e.state, to_device(b, e.device)).items()}

@@ -69,6 +69,9 @@ def test_tiny_cait_tracks_the_jax_train_step(tmp_path, jax_run):
     init_file, batches, jax_metrics, jax_final = jax_run
     e = Engine(_config(tmp_path, *PARITY, f"Global.pretrained_model={init_file}"),
                mode="train", device="cpu")
+    # the loader tolerates a partial file: the converted one must fill every entry
+    assert e.pretrained_report["loaded"] == set(e.model.state_dict())
+    assert not e.pretrained_report["extra"]
     init = _params(e)
     for b, want in zip(batches, jax_metrics):
         got = {k: float(v) for k, v in e.train_step(e.state, to_device(b, e.device)).items()}

@@ -6,10 +6,15 @@ and the autograd Function's backward (the plain `window_attention_bwd_ref`)
 against `jax.grad` through the kernel's custom VJP, at the shapes of
 tests/test_window_attention_kernel.py: no mask, a cycling mask (nWm = 8,
 B = 16), one mask for every group (nWm = 1), Swin's packed L = 98, and bf16
-inputs. Tests marked `cuda` hold both kernels against the plain versions on
-the card, check that dbias is bitwise the same on every launch, and skip
-elsewhere; they import no JAX, so `python -m pytest --noconftest -m cuda
-<this file>` runs them on a machine without it.
+inputs; and, in exact arithmetic, that the tensor-core kernels' softmax
+division gives the IEEE quotient. Tests marked `cuda` hold both kernels
+against the plain versions on the card (Swin's shapes, and every
+fragment-layout edge of the bf16 / f16 tensor-core kernels: L in {49, 98,
+128}, d in {32, 59, 64}, with and without a mask, in bf16, f16 and f32,
+and runs of groups that do not divide B), check that dbias is bitwise the
+same on every launch, and skip elsewhere; they import no JAX, so `python
+-m pytest --noconftest -m cuda <this file>` runs them on a machine without
+it.
 """
 import numpy as np
 import pytest
@@ -191,6 +196,40 @@ def test_function_cpu_path_runs_the_plain_versions():
         assert torch.equal(t.grad, w)
 
 
+def _rn32(x) -> np.float32:
+    """An exact rational rounded to the nearest float32, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))  # within one f32 ulp; pick the nearest exactly
+    cands = (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf)))
+    dist = [abs(Fraction(float(c)) - x) for c in cands]
+    best = min(dist)
+    ties = [c for c, dd in zip(cands, dist) if dd == best]
+    return min(ties, key=lambda c: int(np.array(c).view(np.uint32)) & 1)
+
+
+def test_softmax_division_is_correctly_rounded():
+    """The tensor-core kernels' softmax divides e by the row sum as
+    `div_normal` (csrc/window_attention.cuh): q = x rd, r = fma(-q, d, x),
+    fma(r, rd, q) with rd = 1 / d correctly rounded. For x in [2^-60, 1]
+    (smaller exps are taken as 0) and d in [1, 128] that is the IEEE
+    quotient, which this holds in exact arithmetic."""
+    from fractions import Fraction
+
+    rs = np.random.RandomState(40)
+    xs = [np.float32(2.0 ** e) for e in rs.uniform(-60, 0, 3000)] + [np.float32(2.0 ** -60),
+                                                                     np.float32(1.0)]
+    ds = [np.float32(d) for d in rs.uniform(1, 128, 3000)] + [np.float32(1.0), np.float32(128.0)]
+    ds += [np.float32(d) for d in range(1, 129)]
+    rs.shuffle(ds)
+    for x, d in zip(xs * 2, ds):
+        rd = np.float32(1.0) / d
+        q = _rn32(Fraction(float(x)) * Fraction(float(rd)))
+        r = _rn32(Fraction(float(x)) - Fraction(float(q)) * Fraction(float(d)))
+        got = _rn32(Fraction(float(r)) * Fraction(float(rd)) + Fraction(float(q)))
+        assert got == x / d, (x, d)
+
+
 def test_mask_rule_is_b_mod_nwm():
     """Group b takes mask b % nWm (groups laid out [images, nWm] row-major)."""
     q, k, v, bias, mask = _torch(*_mk(b=6, h=2, l=9, d=4, n_mask=3, seed=8))
@@ -219,10 +258,16 @@ def _on(device, dtype, q, k, v, bias, mask):
 
 
 # (b, h, l, d, n_mask): Swin-T's stage shapes (2 images), no mask, one mask,
-# d = 59 (swin_huge) and 64 (swin_giant), and the short edge cases
+# d = 59 (swin_huge) and 64 (swin_giant), and the short edge cases; then the
+# tensor-core kernels' fragment-layout edges: L pads to 64, 112 and 128
+# query rows (4, 7 and 8 row blocks; the last of L = 49 and 98 holds 1 and
+# 2 real rows), d = 32 and 64 fill whole 16-deep steps, d = 59 pads to 64
+# and is staged element by element (rows of 118 bytes); with and without a
+# mask
 CARD_SHAPES = [(64, 3, 98, 32, 32), (16, 6, 98, 32, 8), (4, 12, 98, 32, 2), (2, 24, 49, 32, None),
                (8, 4, 98, 32, 1), (4, 6, 98, 59, 2), (2, 8, 49, 64, None), (3, 2, 17, 8, 3),
-               (2, 2, 128, 64, 1)]
+               (2, 2, 128, 64, 1)] + [(8, 2, l, d, n_mask) for l in (49, 98, 128)
+                                      for d in (32, 59, 64) for n_mask in (None, 4)]
 
 
 @pytest.mark.cuda
@@ -260,10 +305,35 @@ def test_bwd_kernel_matches_plain_version(cuda, shape, dtype):
     assert got[3].dtype == torch.float32 and got[3].shape == (h, l, l)
     err = ((got[3] - want[3]).abs().max() / want[3].abs().max()).item()
     assert err <= DBIAS_RTOL, err
+    again = fused_window_attention_bwd(q, k, v, bias, mask, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_kernels_on_runs_that_do_not_divide_the_groups(cuda, dtype):
+    """B = 1000 groups of 3 heads: the backward's runs of 6 groups leave 4 for
+    the last block of each head, and a run crosses from one of the 8 masks to
+    the next (the groups go mask by mask)."""
+    q, k, v, bias, mask = _on(cuda, dtype, *_mk(1000, 3, 98, 32, 8, seed=33))
+    dout = torch.from_numpy(np.random.RandomState(34).randn(*q.shape)).to(cuda, dtype)
+    with torch.no_grad():
+        out = fused_window_attention(q, k, v, bias, mask)
+    torch.testing.assert_close(out.float(), window_attention_ref(q, k, v, bias, mask).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    got = fused_window_attention_bwd(q, k, v, bias, mask, dout)
+    want = window_attention_bwd_ref(q, k, v, bias, mask, dout)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got[:3], want[:3], ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=name)
+    assert ((got[3] - want[3]).abs().max() / want[3].abs().max()).item() <= DBIAS_RTOL
+    again = fused_window_attention_bwd(q, k, v, bias, mask, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_bwd_kernel_dbias_is_bitwise_repeatable(cuda, dtype):
     q, k, v, bias, mask = _on(cuda, dtype, *_mk(512, 3, 98, 32, 32, seed=23))
     dout = torch.from_numpy(np.random.RandomState(24).randn(*q.shape)).to(cuda, dtype)
