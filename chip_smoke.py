@@ -31,7 +31,8 @@ Run from the repo root:  python3 chip_smoke.py
    shapes (ViT-B/16 at 32 and 128 images in bf16 and f32, ViT-B/32, ViT-B/16
    at 384, ViT-L/16, ViT-H/14, ViT-g/14, MoCo v3 ViT-S, 65 tokens, 4,096
    tokens, one f16 case), with q, k, v read as views of one qkv tensor as
-   the model hands them, checks that both backward kernels are bitwise the
+   the model hands them, logs the tensor-core kernels' registers, shared
+   memory and blocks an SM, checks that all three kernels are bitwise the
    same on a second launch, and times them at ViT-B/16's 128 images against
    their plain versions and F.scaled_dot_product_attention (forward;
    backward; forward + backward through autograd).
@@ -132,7 +133,8 @@ from passl_tpu_torch.ops.augment_kernel import (fused_augment, fused_augment_dra
 from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_attention_dkv, flash_attention_dkv_ref,
                                            flash_attention_dq, flash_attention_dq_ref,
-                                           flash_attention_fwd, flash_attention_fwd_ref)
+                                           flash_attention_fwd, flash_attention_fwd_ref,
+                                           flash_kernel_resources)
 from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax, talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
@@ -525,7 +527,21 @@ def _sdpa(q, k, v, scale):
                                           scale=scale)
 
 
+def _flash_resources() -> None:
+    """Registers, shared memory and blocks an SM of the three tensor-core
+    flash kernels at each (type, head dim) of FLASH_CASES."""
+    for dtype, d in sorted({(dt, shape[-1]) for shape, dt in FLASH_CASES if dt != torch.float32},
+                           key=str):
+        for kernel in ("fwd", "dkv", "dq"):
+            r = flash_kernel_resources(kernel, dtype, d)
+            log(f"[flash] resources {kernel} {str(dtype).removeprefix('torch.')} d={d}: "
+                f"{r['registers']} registers, {r['shared_bytes']} B shared, "
+                f"{r['blocks_per_sm']} blocks of {r['warps']} warps an SM, "
+                f"{r['spill_bytes']} B spilled")
+
+
 def phase_flash() -> dict:
+    _flash_resources()
     results = {}
     with torch.inference_mode():
         for i, (shape, dtype) in enumerate(FLASH_CASES):
@@ -540,14 +556,18 @@ def phase_flash() -> dict:
             torch.testing.assert_close(m, m_ref, atol=STAT_TOL, rtol=STAT_TOL, msg="m")
             torch.testing.assert_close(lsum, l_ref, atol=STAT_TOL, rtol=STAT_TOL, msg="l")
             rec = {"max_abs_err": (o.float() - o_ref.float()).abs().max().item(), "tol": tol}
+            again = flash_attention_fwd(q, k, v, scale)
+            check(all(torch.equal(a, b) for a, b in zip((o, m, lsum), again)),
+                  f"flash at {shape} {dtype}: two launches differ")
             if shape == FLASH_TIMED:  # read q, k, v, write o, m, l; q k^T and p v
                 rec.update(_time_pair(lambda: flash_attention_fwd(q, k, v, scale),
                                       lambda: flash_attention_fwd_ref(q, k, v, scale),
                                       *_flash_bytes_flops(shape, dtype, 4, 2, 2), dtype,
                                       library=lambda: _sdpa(q, k, v, scale)))
             results[(shape, dtype)] = rec
-            log(f"[flash] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
-            del q, k, v, o, m, lsum, o_ref, m_ref, l_ref
+            log(f"[flash] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
+                ", repeatable bitwise")
+            del q, k, v, o, m, lsum, o_ref, m_ref, l_ref, again
     torch.cuda.empty_cache()
     return results
 

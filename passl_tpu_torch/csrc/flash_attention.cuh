@@ -2,7 +2,8 @@
 // (flash_attention.cu, flash_attention_bwd.cu), which have two paths.
 //
 // Every kernel works on 64-row tiles of q, k, v (and do) for one (image,
-// head) and on the [64, 64] tiles of scores between a q tile and a k tile.
+// head) (the tensor-core forward on 128-row q tiles) and on the tiles of
+// scores between a q tile and a k tile.
 // q, k and v are [n, L, h, d] at the caller's strides (s_b, s_l, s_h; the
 // last dim contiguous): views of the projection qkv [n, L, 3, h, d] are
 // read in place. Rows past L are staged as zeros and their scores masked,
@@ -20,8 +21,8 @@
 // bf16 / f16 inputs: the tensor-core path. Tiles stay at the input type in
 // shared memory, rows padded by 8 elements (16 bytes, so that the eight
 // rows a fragment load touches fall on different banks); a B operand that
-// a product reads down its rows comes through `ldmatrix.trans`. The
-// block's 4 warps each own 16 rows of a tile, and every product is
+// a product reads down its rows comes through `ldmatrix.trans`. Each warp
+// owns 16 rows of a tile, and every product is
 // `mma.sync.m16n8k16` with f32 accumulation: a 16 x 8 score chunk's
 // accumulator holds, for thread (g = lane / 4, t = lane % 4), rows g and
 // g + 8 and columns 2t, 2t + 1, which is also the layout of an A operand
@@ -43,10 +44,15 @@ using passl_wa::kThreads;
 using passl_wa::round_to;
 using passl_wa::to_f32;
 using passl_wa::zero;
+using passl_tc::cp_async16;
+using passl_tc::cp_async_commit;
+using passl_tc::cp_async_wait;
 using passl_tc::ld32;
 using passl_tc::load_a;
 using passl_tc::load_b;
 using passl_tc::load_b_trans;
+using passl_tc::load_b_trans_x4;
+using passl_tc::load_b_x4;
 using passl_tc::mma;
 using passl_tc::pack;
 using passl_tc::quad_reduce;
@@ -104,7 +110,7 @@ inline size_t smem_bytes(int tiles, int rd, int extra) {
 
 // ------------------------------------------------------------ tensor cores
 
-constexpr int kWarps = 4;                // tensor-core kernels: 4 warps of 16 rows each
+constexpr int kWarps = 4;                // dK/dV and dQ: 4 warps of 16 rows each
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kChunks = kTile / 8;       // 8-column chunks of a [16, 64] score tile per warp
 
@@ -187,6 +193,63 @@ __device__ __forceinline__ void stage_rows16(T* dst, const T* __restrict__ src, 
     if (r < L && c < d) val = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
     *reinterpret_cast<uint4*>(dst + i * (DP + 8) + c) = val;
   }
+}
+
+// stage_rows16 of ROWS rows by a block of THREADS threads, with cp.async:
+// the copies are in flight until cp_async_wait, and rows past L and columns
+// past d are zero-filled without a read. Where THREADS is a multiple of the
+// DP / 8 vectors of a row, each thread keeps one column for every row it copies.
+template <typename T, int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ src,
+                                                 int64_t row_stride, int row0, int L, int d) {
+  constexpr int V = DP / 8;
+  if constexpr (THREADS % V == 0) {
+    const int c = (threadIdx.x % V) * 8;
+    const bool col_ok = c < d;
+#pragma unroll
+    for (int i = threadIdx.x / V; i < ROWS; i += THREADS / V) {
+      const int r = row0 + i;
+      const bool ok = col_ok && r < L;
+      cp_async16(dst + i * (DP + 8) + c, ok ? src + (int64_t)r * row_stride + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * V; idx += THREADS) {
+      const int i = idx / V;
+      const int c = (idx - i * V) * 8;
+      const int r = row0 + i;
+      const bool ok = r < L && c < d;
+      cp_async16(dst + i * (DP + 8) + c, ok ? src + (int64_t)r * row_stride + c : src, ok);
+    }
+  }
+}
+
+// Blocks of the forward and dK/dV grids: n h q (or k) tiles of `rows` rows,
+// tile index fastest, so that the tiles of one (image, head) run side by side.
+// 0 past the grid's 2^31 - 1 blocks.
+inline int64_t linear_blocks(int n, int L, int h, int rows = kTile) {
+  const int64_t blocks = (int64_t)n * h * ((L + rows - 1) / rows);
+  return blocks < 2147483648LL ? blocks : 0;
+}
+
+// A kernel's registers a thread, shared memory a block (dynamic `smem` plus
+// static), blocks an SM at `threads` a block, local-memory bytes a thread
+// (spills) and warps a block, into out[0..4].
+template <typename K>
+cudaError_t kernel_resources(K kernel, int threads, size_t smem, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)(smem + attr.sharedSizeBytes);
+  out[2] = per_sm;
+  out[3] = (int)attr.localSizeBytes;
+  out[4] = threads / 32;
+  return cudaSuccess;
 }
 
 }  // namespace passl_fa

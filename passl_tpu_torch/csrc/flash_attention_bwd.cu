@@ -22,20 +22,30 @@
 // CUDA cores' 67 TFLOP/s) by the products.
 //
 // Design. dK/dV: one block per (image x head, 64-row k tile), k and v
-// staged once; a loop over 64-row q tiles stages q and do, recomputes the
-// [64, 64] p tile, adds p^T do to dv, forms ds from do v^T, and adds
-// ds^T q to dk, in registers. dQ: one block per (image x head, 64-row q
-// tile), q and do staged once; a loop over k tiles stages k and v and adds
-// ds k to dq. Every block owns its outputs: there are no atomics, so both
-// are bitwise the same on every launch. The split into two kernels is the
-// library's: it spends the recompute of p twice to need no reduction
-// across blocks. bf16 / f16 run the products on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation, p and ds kept in registers between
-// products; see flash_attention.cuh), f32 on the CUDA cores from shared
-// memory. What bounds the tensor-core kernels now: synchronous staging of
-// each tile, four (dK/dV) and three (dQ) products per tile pair, and the
-// registers dK/dV holds (two [16, d] accumulators a warp), which limit the
-// warps in flight.
+// staged once; a loop over 64-row q tiles stages q and do, recomputes p,
+// adds p^T do to dv, forms ds from do v^T, and adds ds^T q to dk, in
+// registers. dQ: one block per (image x head, 64-row q tile), q and do
+// staged once; a loop over k tiles stages k and v and adds ds k to dq.
+// Every block owns its outputs: there are no atomics, so both are bitwise
+// the same on every launch. The split into two kernels is the library's:
+// it spends the recompute of p twice to need no reduction across blocks.
+// bf16 / f16 run the products on the tensor cores (mma.sync m16n8k16, f32
+// accumulation, p and ds kept in registers between products; see
+// flash_attention.cuh), f32 on the CUDA cores from shared memory.
+// - dK/dV (bf16 / f16): a 1-D grid runs the k tiles of one head side by
+//   side, so each head's q and do come from device memory about once and
+//   from L2 after; q and do tiles are double-buffered with cp.async and the
+//   rows' statistics prefetched in registers; each warp holds its 16 keys'
+//   k and v rows as A operands and takes the q tile in 16-row slabs (p and
+//   ds in 16 registers a thread); warps past L and slabs past L do no work,
+//   and full tiles take a body with no branch (dkv_tile<FULL>). At d = 64:
+//   168 registers (28 bytes spilled), 38,400 B of shared memory, 3 blocks
+//   (12 warps) an SM. What bounds it now: the latency of each warp's chain
+//   of four products a slab, with 12 warps an SM to hide it.
+// - dQ (bf16 / f16): 4 warps of 16 q rows, a 2-D grid (image x head, q
+//   tile), synchronous staging of each k tile; bound by that staging (no
+//   copy in flight while the tensor cores work) and by three products a
+//   tile pair.
 
 #include "flash_attention.cuh"
 
@@ -256,71 +266,181 @@ __device__ __forceinline__ void store_rows_mma(T* __restrict__ out, const float 
   }
 }
 
+// One q tile of dK/dV for one warp's 16 keys (k and v rows as A operands kf,
+// vf), in 16-row slabs of queries, those that hold a query only: s^T and dp^T
+// of the slab (two 8-column chunks each), p and ds from the rows' m, 1 / l
+// and di (ms: [m, 1 / l, di][64]), then dv += p^T do and dk += ds^T q, so
+// that p and ds live in 16 registers a thread, not 64. FULL: all 64 queries
+// and all 16 keys lie before L, so nothing is skipped or masked and the code
+// has no branch.
+template <typename T, int DP, bool FULL>
+__device__ __forceinline__ void dkv_tile(float (&dk_acc)[DP / 8][4], float (&dv_acc)[DP / 8][4],
+                                         const uint32_t (&kf)[DP / 16][4],
+                                         const uint32_t (&vf)[DP / 16][4], const T* Qs,
+                                         const T* dOs, const float* ms, int q0, int key0, int L,
+                                         float scale, int lane) {
+  constexpr int LD = DP + 8;
+  const int t = lane & 3;
+  const int n16 = FULL ? kTile / 16 : (min(kTile, L - q0) + 15) / 16;  // slabs holding a query
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    if (!FULL && kk >= n16) break;
+    float p[2][4], ds[2][4];  // rows: the warp's keys; columns: queries 16 kk + 8 c ..
+    zero_acc(p);
+    zero_acc(ds);
+#pragma unroll
+    for (int dd = 0; dd < DP / 16; ++dd) {
+      uint32_t b0[2], b1[2];
+      load_b_x4(b0, b1, Qs, LD, kk * 16, dd * 16, lane);
+      mma<T>(p[0], kf[dd], b0);
+      mma<T>(p[1], kf[dd], b1);
+      load_b_x4(b0, b1, dOs, LD, kk * 16, dd * 16, lane);
+      mma<T>(ds[0], vf[dd], b0);
+      mma<T>(ds[1], vf[dd], b1);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int qi = kk * 16 + c * 8 + 2 * t;  // this thread's columns qi, qi + 1
+      const float2 mq = *reinterpret_cast<const float2*>(ms + qi);
+      const float2 ilq = *reinterpret_cast<const float2*>(ms + kTile + qi);
+      const float2 diq = *reinterpret_cast<const float2*>(ms + 2 * kTile + qi);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e & 1;
+        const bool ok = FULL || (key0 + (lane >> 2) + 8 * (e >> 1) < L && q0 + qi + hi < L);
+        p_ds(p[c][e], ds[c][e], ok, hi ? mq.y : mq.x, hi ? ilq.y : ilq.x, hi ? diq.y : diq.x,
+             scale);
+      }
+    }
+    uint32_t pa[4], da[4];  // p^T and ds^T at do's type: A operands over the slab
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      pa[2 * c] = pack<T>(p[c][0], p[c][1]);
+      pa[2 * c + 1] = pack<T>(p[c][2], p[c][3]);
+      da[2 * c] = pack<T>(ds[c][0], ds[c][1]);
+      da[2 * c + 1] = pack<T>(ds[c][2], ds[c][3]);
+    }
+#pragma unroll
+    for (int jd = 0; jd < DP / 8; jd += 2) {
+      uint32_t b0[2], b1[2];
+      load_b_trans_x4(b0, b1, dOs, LD, kk * 16, jd * 8, lane);  // dv += p^T do
+      mma<T>(dv_acc[jd], pa, b0);
+      mma<T>(dv_acc[jd + 1], pa, b1);
+      load_b_trans_x4(b0, b1, Qs, LD, kk * 16, jd * 8, lane);  // dk += ds^T q
+      mma<T>(dk_acc[jd], da, b0);
+      mma<T>(dk_acc[jd + 1], da, b1);
+    }
+  }
+}
+
+// The tensor-core dK/dV. Block x of the 1-D grid takes k tile x % n_tiles of
+// (image x head) x / n_tiles, so the k tiles of one head run side by side and
+// read its q and do from L2 after the first. 4 warps, warp w owning keys
+// 16 w .. 16 w + 15 of the tile (a warp whose 16 keys all lie past L only
+// helps stage), their k and v rows held as A operands in registers for the
+// whole run. The q side streams in 64-row tiles (dkv_tile): q and do
+// double-buffered with cp.async, the rows' m, 1 / l and di loaded into
+// registers one tile ahead and stored to shared memory after the tile's
+// products, behind one barrier a tile.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 2)
 flash_attention_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v, const T* __restrict__ dout,
                                const float* __restrict__ m_in, const float* __restrict__ l_in,
                                const float* __restrict__ di_in, T* __restrict__ dk,
                                T* __restrict__ dv, int L, int h, int d, int64_t s_b, int64_t s_l,
-                               int64_t s_h, float scale) {
+                               int64_t s_h, float scale, int n_tiles) {
   constexpr int LD = DP + 8;
+  constexpr int TILE = kTile * LD;
+  constexpr int KD = DP / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // [64, LD] each
-  T* Vs = Ks + kTile * LD;
-  T* Qs = Vs + kTile * LD;
-  T* dOs = Qs + kTile * LD;
-  float* ms = reinterpret_cast<float*>(dOs + kTile * LD);  // [64] each: the q tile's m, 1 / l, di
-  float* ils = ms + kTile;
-  float* dis = ils + kTile;
+  T* QDs = reinterpret_cast<T*>(smem_raw);  // [2 buffers][q, do][64, LD]; k, v first in buffer 1
+  float* stats = reinterpret_cast<float*>(QDs + 4 * TILE);  // [2 buffers][m, 1 / l, di][64]
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x - bh * n_tiles) * kTile;
   const int b = bh / h;
   const int head = bh - b * h;
-  const int k0 = blockIdx.y * kTile;
   const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
   const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;  // do is contiguous
-  const int64_t row_base = (int64_t)bh * L;
+  const int64_t do_stride = (int64_t)h * d;
+  const float* m_row = m_in + (int64_t)bh * L;
+  const float* l_row = l_in + (int64_t)bh * L;
+  const float* di_row = di_in + (int64_t)bh * L;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
+  const int key0 = k0 + warp * 16;  // the warp's first key
+  const bool active = key0 < L;
+  const int nq = (L + kTile - 1) / kTile;
 
-  stage_rows16<T, DP>(Ks, k + base, s_l, k0, L, d);
-  stage_rows16<T, DP>(Vs, v + base, s_l, k0, L, d);
+  stage_rows_async<T, DP, kTile, kMmaThreads>(QDs + 2 * TILE, k + base, s_l, k0, L, d);
+  stage_rows_async<T, DP, kTile, kMmaThreads>(QDs + 3 * TILE, v + base, s_l, k0, L, d);
+  cp_async_commit();
+  stage_rows_async<T, DP, kTile, kMmaThreads>(QDs, q + base, s_l, 0, L, d);
+  stage_rows_async<T, DP, kTile, kMmaThreads>(QDs + TILE, dout + do_base, do_stride, 0, L, d);
+  cp_async_commit();
+  if (threadIdx.x < kTile) {  // q tile 0's row statistics (0, 1, 0 past L)
+    const int i = threadIdx.x;
+    stats[i] = i < L ? m_row[i] : 0.f;
+    stats[kTile + i] = i < L ? 1.f / l_row[i] : 1.f;
+    stats[2 * kTile + i] = i < L ? di_row[i] : 0.f;
+  }
+  cp_async_wait<1>();  // k and v have landed
+  __syncthreads();
+  uint32_t kf[KD][4], vf[KD][4];  // the warp's keys: A operands of s^T = k q^T and dp^T = v do^T
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      load_a(kf[kk], QDs + 2 * TILE, LD, warp * 16, kk * 16, lane);
+      load_a(vf[kk], QDs + 3 * TILE, LD, warp * 16, kk * 16, lane);
+    }
+  }
 
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];  // keys k0 + 16 warp + lane / 4 (+ 8)
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];  // keys key0 + lane / 4 (+ 8)
   zero_acc(dk_acc);
   zero_acc(dv_acc);
-  for (int q0 = 0; q0 < L; q0 += kTile) {
-    __syncthreads();  // the last tile's reads of the q-side tiles are done
-    stage_rows16<T, DP>(Qs, q + base, s_l, q0, L, d);
-    stage_rows16<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      const int row = q0 + i;
-      ms[i] = row < L ? m_in[row_base + row] : 0.f;
-      ils[i] = row < L ? 1.f / l_in[row_base + row] : 1.f;
-      dis[i] = row < L ? di_in[row_base + row] : 0.f;
-    }
-    __syncthreads();
-
-    float p[kChunks][4], ds[kChunks][4];  // rows: keys; columns: the q tile
-    tile_product<T, DP, LD>(p, Ks, warp * 16, Qs, lane);    // s^T = k q^T
-    tile_product<T, DP, LD>(ds, Vs, warp * 16, dOs, lane);  // dp^T = v do^T
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + (lane >> 2) + 8 * (e >> 1);
-        const int qi = j * 8 + 2 * t + (e & 1);
-        p_ds(p[j][e], ds[j][e], key < L && q0 + qi < L, ms[qi], ils[qi], dis[qi], scale);
+  for (int it = 0; it < nq; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed, and every read of the other buffer is done
+    const int q0 = it * kTile;
+    float nm = 0.f, nil = 1.f, ndi = 0.f;  // the next tile's statistics, row q0 + 64 + threadIdx.x
+    if (it + 1 < nq) {
+      T* nxt = QDs + ((it + 1) & 1) * 2 * TILE;
+      stage_rows_async<T, DP, kTile, kMmaThreads>(nxt, q + base, s_l, q0 + kTile, L, d);
+      stage_rows_async<T, DP, kTile, kMmaThreads>(nxt + TILE, dout + do_base, do_stride,
+                                                  q0 + kTile, L, d);
+      cp_async_commit();
+      const int i = q0 + kTile + threadIdx.x;
+      if (threadIdx.x < kTile && i < L) {
+        nm = m_row[i];
+        nil = 1.f / l_row[i];
+        ndi = di_row[i];
       }
     }
-    acc_product<T, DP>(dv_acc, p, dOs, lane);   // dv += (p at do's type)^T do
-    acc_product<T, DP>(dk_acc, ds, Qs, lane);   // dk += (ds at do's type)^T q
+    if (active) {
+      const T* Qs = QDs + (it & 1) * 2 * TILE;
+      const float* ms = stats + (it & 1) * 3 * kTile;
+      if (q0 + kTile <= L && key0 + 16 <= L)
+        dkv_tile<T, DP, true>(dk_acc, dv_acc, kf, vf, Qs, Qs + TILE, ms, q0, key0, L, scale, lane);
+      else
+        dkv_tile<T, DP, false>(dk_acc, dv_acc, kf, vf, Qs, Qs + TILE, ms, q0, key0, L, scale,
+                               lane);
+    }
+    if (it + 1 < nq && threadIdx.x < kTile) {  // read at tile it + 1, after its barrier
+      float* nxt = stats + ((it + 1) & 1) * 3 * kTile;
+      nxt[threadIdx.x] = nm;
+      nxt[kTile + threadIdx.x] = nil;
+      nxt[2 * kTile + threadIdx.x] = ndi;
+    }
   }
-  store_rows_mma<T, DP>(dk, dk_acc, b, head, k0 + warp * 16, L, h, d, lane);
-  store_rows_mma<T, DP>(dv, dv_acc, b, head, k0 + warp * 16, L, h, d, lane);
+  if (!active) return;
+  store_rows_mma<T, DP>(dk, dk_acc, b, head, key0, L, h, d, lane);
+  store_rows_mma<T, DP>(dv, dv_acc, b, head, key0, L, h, d, lane);
 }
+
+// Shared memory of the tensor-core dK/dV: two buffers of q and do tiles and
+// two of the q rows' m, 1 / l, di.
+inline size_t dkv_mma_smem(int dp) { return mma_smem_bytes(4, dp, 6 * kTile); }
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -432,21 +552,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
                        const float* m, const float* l, const float* di, void* g0, void* g1, int n,
                        int L, int h, int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale,
                        cudaStream_t stream) {
-  const dim3 grid((unsigned)((int64_t)n * h), (unsigned)((L + kTile - 1) / kTile));
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   if constexpr (W == Which::kDkv) {
-    const size_t smem = mma_smem_bytes(4, DP, 3 * kTile);
+    const size_t smem = dkv_mma_smem(DP);
     auto kernel = flash_attention_dkv_mma_kernel<T, DP>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0),
-                                                static_cast<T*>(g1), L, h, d, s_b, s_l, s_h,
-                                                scale);
+    kernel<<<(unsigned)linear_blocks(n, L, h), kMmaThreads, smem, stream>>>(
+        qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), static_cast<T*>(g1), L, h, d, s_b, s_l,
+        s_h, scale, (L + kTile - 1) / kTile);
   } else {
+    const dim3 grid((unsigned)((int64_t)n * h), (unsigned)((L + kTile - 1) / kTile));
     const size_t smem = mma_smem_bytes(4, DP, 0);
     auto kernel = flash_attention_dq_mma_kernel<T, DP>;
     cudaError_t err =
@@ -472,6 +592,27 @@ cudaError_t launch_mma_t(const void* q, const void* k, const void* v, const void
   }
 }
 
+template <Which W, typename T, int DP>
+cudaError_t mma_resources_dp(int* out) {
+  if constexpr (W == Which::kDkv)
+    return kernel_resources(flash_attention_dkv_mma_kernel<T, DP>, kMmaThreads, dkv_mma_smem(DP),
+                            out);
+  else
+    return kernel_resources(flash_attention_dq_mma_kernel<T, DP>, kMmaThreads,
+                            mma_smem_bytes(4, DP, 0), out);
+}
+
+template <Which W, typename T>
+cudaError_t mma_resources(int d, int* out) {
+  switch (mma_head_dim(d)) {
+    case 32: return mma_resources_dp<W, T, 32>(out);
+    case 64: return mma_resources_dp<W, T, 64>(out);
+    case 96: return mma_resources_dp<W, T, 96>(out);
+    case 128: return mma_resources_dp<W, T, 128>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <Which W>
 int launch_any(const void* q, const void* k, const void* v, const void* dout, const void* m,
                const void* l, const void* di, void* g0, void* g1, int n, int L, int h, int d,
@@ -479,7 +620,8 @@ int launch_any(const void* q, const void* k, const void* v, const void* dout, co
                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n <= 0 || L <= 0 || h <= 0 || cols_per_thread(d) == 0 || (L + kTile - 1) / kTile > 65535)
+  if (n <= 0 || L <= 0 || h <= 0 || cols_per_thread(d) == 0 || (L + kTile - 1) / kTile > 65535 ||
+      linear_blocks(n, L, h) == 0)
     return (int)cudaErrorInvalidValue;
   const float* m32 = static_cast<const float*>(m);
   const float* l32 = static_cast<const float*>(l);
@@ -523,4 +665,25 @@ extern "C" int passl_flash_attention_dq(const void* q, const void* k, const void
                                         int dtype, int device, void* stream) {
   return launch_any<Which::kDq>(q, k, v, dout, m, l, di, dq, nullptr, n, L, h, d, s_b, s_l, s_h,
                                 scale, dtype, device, stream);
+}
+
+// The tensor-core dK/dV (which 0) or dQ (which 1) kernel's resources at
+// `dtype` (1 bfloat16, 2 float16) and head dim d on `device`: registers a
+// thread, shared memory a block, blocks an SM, spilled bytes a thread and
+// warps a block, into out[0..4].
+extern "C" int passl_flash_attention_bwd_resources(int which, int dtype, int d, int device,
+                                                   int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
+  const bool dkv = which == 0;
+  switch (dtype) {
+    case 1:
+      return (int)(dkv ? mma_resources<Which::kDkv, __nv_bfloat16>(d, out)
+                       : mma_resources<Which::kDq, __nv_bfloat16>(d, out));
+    case 2:
+      return (int)(dkv ? mma_resources<Which::kDkv, __half>(d, out)
+                       : mma_resources<Which::kDq, __half>(d, out));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -96,6 +96,34 @@ __device__ __forceinline__ void load_b_trans(uint32_t (&b)[2], const T* s, int l
                : "r"(addr));
 }
 
+// The B operands of two neighbouring 8-column chunks, n0.. (b0) and n0 + 8..
+// (b1), over k0 .. k0 + 15 of a product whose B is held transposed, s[n][k]
+// (16-byte aligned rows), in one `ldmatrix.x4`: lanes 8 q .. 8 q + 7 give the
+// rows of the q-th 8 x 8 matrix (rows n0 + 8 (q / 2) .., columns k0 + 8 (q % 2)).
+// The same fragments as two pairs of load_b calls.
+template <typename T>
+__device__ __forceinline__ void load_b_x4(uint32_t (&b0)[2], uint32_t (&b1)[2], const T* s, int ld,
+                                          int n0, int k0, int lane) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(
+      s + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + k0 + 8 * ((lane >> 3) & 1)));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
+               : "r"(addr));
+}
+
+// The B operands (16 x 8 each) at (k0, n0) (b0) and (k0, n0 + 8) (b1) of a
+// product whose B is held as it stands, s[k][n] (16-byte aligned rows), in
+// one `ldmatrix.x4.trans`: the same fragments as two load_b_trans calls.
+template <typename T>
+__device__ __forceinline__ void load_b_trans_x4(uint32_t (&b0)[2], uint32_t (&b1)[2], const T* s,
+                                                int ld, int k0, int n0, int lane) {
+  const unsigned addr = static_cast<unsigned>(
+      __cvta_generic_to_shared(s + (k0 + (lane & 15)) * ld + n0 + 8 * (lane >> 4)));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
+               : "r"(addr));
+}
+
 // The A operand (16 x 16: m0.. along m, k0.. along k) of a product whose A
 // is held transposed, s[k][m], row-major with row stride ld (16-byte aligned
 // rows): A(m, k) = s[k0 + k][m0 + m]. Lanes 8 q .. 8 q + 7 give the rows of

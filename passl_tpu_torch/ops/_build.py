@@ -125,6 +125,11 @@ def load() -> ctypes.CDLL:
     lib.passl_flash_attention_dkv.restype = i32
     lib.passl_flash_attention_dq.argtypes = [vp] * 8 + geometry
     lib.passl_flash_attention_dq.restype = i32
+    # dtype, d, device, int[5] out / which, dtype, d, device, int[5] out
+    lib.passl_flash_attention_fwd_resources.argtypes = [i32, i32, i32, vp]
+    lib.passl_flash_attention_fwd_resources.restype = i32
+    lib.passl_flash_attention_bwd_resources.argtypes = [i32, i32, i32, i32, vp]
+    lib.passl_flash_attention_bwd_resources.restype = i32
     # img, draws, chan, out, N, H, W, C, taps, blur_prob, solarize_prob, smin, span, threshold,
     # device, stream
     lib.passl_fused_augment.argtypes = [vp] * 4 + [i32] * 5 + [f32] * 5 + [i32, vp]

@@ -41,6 +41,7 @@ tensors and through their plain versions on CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import warnings
 from typing import Union
 
@@ -52,6 +53,7 @@ _LANES = 128
 # `auto` turns to flash only from this many tokens, as in the JAX package
 _FLASH_AUTO_MIN_SEQ = 4096
 MAX_D = 128  # the kernels' limits: d <= 128 and d % 8 == 0
+_TILE = 64  # rows of the kernels' q and k tiles: the grids have n * h * ceil(l / 64) blocks
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DtypeLike = Union[str, torch.dtype]
 
@@ -187,8 +189,9 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None
                          f"multiples of 8, got strides {q.stride()}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start on 16-byte boundaries")
-    if n * h >= 2**31:
-        raise ValueError(f"{name}: n*h={n * h} exceeds the grid")
+    blocks = n * h * -(-l // _TILE)
+    if blocks >= 2**31:
+        raise ValueError(f"{name}: n*h*ceil(l/{_TILE})={blocks} exceeds the grid")
 
 
 def _check_device(name: str, q: torch.Tensor) -> None:
@@ -273,6 +276,25 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: to
         raise RuntimeError(f"{name}: launch failed with cudaError {rc} for q {tuple(q.shape)} {q.dtype}")
     flash_attention_dq.launches += 1
     return dq
+
+
+def flash_kernel_resources(kernel: str, dtype: torch.dtype, d: int, device: int = 0) -> dict:
+    """What the tensor-core kernel `kernel` ("fwd", "dkv" or "dq") takes at
+    `dtype` (bf16 or f16) and head dim d on the card: registers a thread, shared
+    memory bytes a block, blocks an SM, spilled (local) bytes a thread and warps
+    a block."""
+    if kernel not in ("fwd", "dkv", "dq") or dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"flash_kernel_resources: no tensor-core kernel {kernel!r} at {dtype}")
+    out = (ctypes.c_int * 5)()
+    lib = _build.load()
+    code = _DTYPE_CODES[dtype]
+    if kernel == "fwd":
+        rc = lib.passl_flash_attention_fwd_resources(code, d, device, out)
+    else:
+        rc = lib.passl_flash_attention_bwd_resources(int(kernel == "dq"), code, d, device, out)
+    if rc != 0:
+        raise RuntimeError(f"flash_kernel_resources: cudaError {rc} for {kernel} {dtype} d={d}")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm", "spill_bytes", "warps"), out))
 
 
 flash_attention_dkv.launches = 0  # dK/dV kernel launches since the last reset

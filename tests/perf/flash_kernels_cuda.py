@@ -1,0 +1,97 @@
+"""Time the flash-attention kernels at ViT-B/16's training shape on the card,
+and split the forward's and dK/dV's time into products and streaming.
+
+    python tests/perf/flash_kernels_cuda.py                     # this checkout
+    python tests/perf/flash_kernels_cuda.py full nocomp nomem   # and two diagnostic copies
+
+`nocomp` is a copy of `passl_tpu_torch/` whose forward and dK/dV kernels skip
+their products (staging, barriers and stores stay); `nomem` one whose kernels
+stage only their first tile and reuse it. Both write wrong outputs and exist
+only to be timed. Each copy builds under `build/flash_variants/<name>/`
+(all builds side by side) and is timed in a process of its own, in the order
+given and then in reverse. Prints one JSON line a run: CUDA-event ms a
+launch (mean of 50 after 5 warm-up) of the forward, dK/dV and dQ.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+SHAPE = (128, 197, 12, 64)  # ViT-B/16 training, bf16
+EDITS = {  # (source, text, replacement)
+    "nocomp": [("flash_attention.cu", "    if (!active) continue;", "    continue;"),
+               ("flash_attention_bwd.cu", "    if (active) {\n      const T* Qs",
+                "    if (false) {\n      const T* Qs")],
+    "nomem": [("flash_attention.cu", "      stage_rows_async<T, DP, kTile, THREADS>(nxt",
+               "      if (false) stage_rows_async<T, DP, kTile, THREADS>(nxt"),
+              ("flash_attention_bwd.cu", "      stage_rows_async<T, DP, kTile, kMmaThreads>(nxt",
+               "      if (false) stage_rows_async<T, DP, kTile, kMmaThreads>(nxt")],
+}
+BUILD = "from passl_tpu_torch.ops import _build; _build.load()"
+
+
+def variant_root(name: str) -> Path:
+    """The directory whose passl_tpu_torch/ a run imports: the checkout, or an edited copy."""
+    if name == "full":
+        return REPO
+    root = REPO / "build" / "flash_variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(REPO / "passl_tpu_torch", root / "passl_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for src, text, repl in EDITS[name]:
+        path = root / "passl_tpu_torch" / "csrc" / src
+        code = path.read_text()
+        if text not in code:
+            raise SystemExit(f"{name}: {src} has no {text!r}")
+        path.write_text(code.replace(text, repl))
+    return root
+
+
+def time_kernels() -> dict:
+    import torch
+    from passl_tpu_torch.ops import attention as A
+
+    n, l, h, d = SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = torch.randn(n, l, 3, h, d, generator=gen, device="cuda").to(torch.bfloat16).unbind(2)
+    do = torch.randn(n, l, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = d ** -0.5
+    o, m, lsum = A.flash_attention_fwd(q, k, v, scale)
+    di = A.flash_attention_di(o, do)
+    fns = {"fwd": lambda: A.flash_attention_fwd(q, k, v, scale),
+           "dkv": lambda: A.flash_attention_dkv(q, k, v, do, m, lsum, di, scale),
+           "dq": lambda: A.flash_attention_dq(q, k, v, do, m, lsum, di, scale)}
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(5):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(50):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = start.elapsed_time(end) / 50
+    return out
+
+
+def main(argv: list[str]) -> None:
+    if argv[:1] == ["--run"]:  # one timing run, in the process that imports the copy
+        sys.path.insert(0, argv[1])
+        print(json.dumps({"variant": argv[2], **time_kernels()}), flush=True)
+        return
+    names = argv or ["full"]
+    roots = {name: variant_root(name) for name in names}
+    builds = [subprocess.Popen([sys.executable, "-c", BUILD], cwd=root) for root in roots.values()]
+    if any(p.wait() for p in builds):
+        raise SystemExit("a build failed")
+    for name in names + names[::-1]:
+        subprocess.run([sys.executable, __file__, "--run", str(roots[name]), name], check=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -239,12 +239,20 @@ def _tensors(n=2, l=70, h=2, d=16, dtype=torch.float32, device="cpu"):
     (lambda q, k, v: (torch.zeros(1, 70, 1, 20),) * 3, "d % 8 == 0"),
     (lambda q, k, v: tuple(t.transpose(2, 3).contiguous().transpose(2, 3) for t in (q, k, v)),
      "contiguous last dim"),
+    (lambda q, k, v: (torch.zeros(1, 1, 1, 16).expand(2**26, 1024, 2, 16),) * 3,
+     "exceeds the grid"),  # 2^31 blocks of 64-row tiles
     (lambda q, k, v: (q, k, v), "CUDA tensors"),
 ])
 def test_kernel_wrappers_refuse_what_they_do_not_take(change, match):
     q, k, v = change(*_tensors())
     with pytest.raises((ValueError, TypeError), match=match):
         flash_attention_fwd(q, k, v, 0.25)
+
+
+@pytest.mark.parametrize("kernel, dtype", [("fwd", torch.float32), ("bwd", torch.bfloat16)])
+def test_resources_query_takes_the_tensor_core_kernels_only(kernel, dtype):
+    with pytest.raises(ValueError, match="no tensor-core kernel"):
+        port_attention.flash_kernel_resources(kernel, dtype, 64)
 
 
 def test_backward_wrappers_check_their_row_inputs():
@@ -281,10 +289,17 @@ def _qkv_on(device, dtype, n, l, h, d, seed):
 
 # (n, l, h, d): ViT-B/16 (2 images), ViT-B/32 (below the resolver's 65),
 # ViT-L/16, ViT-H/14 (d = 80), ViT-g/14 (d = 104), MoCo v3 ViT-S (d = 32), the
-# shortest flash sequence, one token, a full last tile, d = 8 and 128
+# shortest flash sequence, one token, a full last tile, d = 8 and 128; then
+# the edges of the 64-row tiles and their 16-row warps and 8-key chunks: l
+# just below, at and above 64 and 128 (in d = 8, 64 and 128), l = 193 (a last
+# tile of one 16-row group and one key chunk), ViT-B/16 at 384 (577), and 24
+# ViT-B/16 images, whose 1,152 blocks run in more than one wave of the card
 CARD_SHAPES = [(2, 197, 12, 64), (2, 50, 12, 64), (2, 197, 16, 64), (2, 257, 16, 80),
                (1, 257, 16, 104), (2, 197, 12, 32), (2, 65, 2, 32), (3, 1, 2, 16),
-               (2, 128, 2, 64), (2, 100, 2, 8), (1, 70, 2, 128)]
+               (2, 128, 2, 64), (2, 100, 2, 8), (1, 70, 2, 128),
+               (2, 63, 2, 64), (2, 64, 3, 8), (2, 65, 2, 128), (2, 127, 2, 64), (1, 128, 2, 128),
+               (2, 129, 3, 64), (2, 193, 2, 64), (1, 193, 2, 8), (1, 577, 4, 64),
+               (24, 197, 12, 64)]
 
 
 @pytest.mark.cuda
@@ -302,6 +317,18 @@ def test_fwd_kernel_matches_plain_version(cuda, shape, dtype):
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
     torch.testing.assert_close(m, m_ref, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lsum, l_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_fwd_kernel_repeatable_bitwise(cuda, shape, dtype):
+    q, k, v = _qkv_on(cuda, dtype, *shape, seed=23)
+    scale = shape[-1] ** -0.5
+    first = flash_attention_fwd(q, k, v, scale)
+    again = flash_attention_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
