@@ -291,20 +291,26 @@ def _time_pair(kernel, plain, nbytes: int, flops: float, dtype: torch.dtype,
                library: Optional[Callable] = None) -> dict:
     """Kernel, plain version and (where there is one) the PyTorch call that
     computes the same function, timed in turns (plain, kernel, library,
-    library, kernel, plain), with the kernel's rate and its bound."""
+    library, kernel, plain), with the kernel's rate and its bound. The
+    library's two turns are kept beside their mean (`library_ms_turns`): its
+    time can move between turns, and a ranking against it names the reading."""
     fns = (plain, kernel, library, library, kernel, plain)
     plain_a, kern_a, lib_a, lib_b, kern_b, plain_b = (
         _time_ms(f) if f is not None else None for f in fns)
     rec = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
            "library_ms": None if library is None else (lib_a + lib_b) / 2,
            **_bound(nbytes, flops, dtype)}
+    if library is not None:
+        rec["library_ms_turns"] = [lib_a, lib_b]
     rec["kernel_GBps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     return rec
 
 
 def _fmt(rec: dict) -> str:
-    return ", ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+    def num(v):
+        return f"{v:.6g}" if isinstance(v, float) else str(v)
+    return ", ".join(f"{k}=[{', '.join(map(num, v))}]" if isinstance(v, list) else f"{k}={num(v)}"
                      for k, v in rec.items())
 
 

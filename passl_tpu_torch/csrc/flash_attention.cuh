@@ -47,10 +47,7 @@ using passl_wa::zero;
 using passl_tc::cp_async16;
 using passl_tc::cp_async_commit;
 using passl_tc::cp_async_wait;
-using passl_tc::ld32;
 using passl_tc::load_a;
-using passl_tc::load_b;
-using passl_tc::load_b_trans;
 using passl_tc::load_b_trans_x4;
 using passl_tc::load_b_x4;
 using passl_tc::mma;
@@ -110,7 +107,7 @@ inline size_t smem_bytes(int tiles, int rd, int extra) {
 
 // ------------------------------------------------------------ tensor cores
 
-constexpr int kWarps = 4;                // dK/dV and dQ: 4 warps of 16 rows each
+constexpr int kWarps = 4;                // dK/dV: 4 warps of 16 rows each
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kChunks = kTile / 8;       // 8-column chunks of a [16, 64] score tile per warp
 
@@ -130,75 +127,23 @@ inline size_t mma_smem_bytes(int tiles, int dp, int extra) {
   return (size_t)tiles * kTile * (dp + 8) * 2 + (size_t)extra * 4;
 }
 
-// The A operand over 16 columns (chunks 2 kk and 2 kk + 1) of a [16, 64]
+// The A operand over 16 columns (chunks 2 kk and 2 kk + 1) of a [16, 8 N]
 // accumulator tile, rounded to T.
-template <typename T>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[kChunks][4], int kk) {
+template <typename T, int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[N][4], int kk) {
   a[0] = pack<T>(c[2 * kk][0], c[2 * kk][1]);
   a[1] = pack<T>(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack<T>(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack<T>(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// c = a tile's 16 rows (row0..) times the 64 rows of a tile held as B^T,
-// both [.., DP] row-major with row stride LD: c[j] is columns 8 j .. 8 j + 7.
-template <typename T, int DP, int LD>
-__device__ __forceinline__ void tile_product(float (&c)[kChunks][4], const T* a_tile, int row0,
-                                             const T* bt_tile, int lane) {
-#pragma unroll
-  for (int j = 0; j < kChunks; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, a_tile, LD, row0, kk * 16, lane);
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      uint32_t b[2];
-      load_b(b, bt_tile, LD, j * 8, kk * 16, lane);
-      mma<T>(c[j], a, b);
-    }
-  }
-}
-
-// acc[jd] += (c at T) times a [64, DP] tile (row stride DP + 8): the
-// [16, 64] accumulator tile c as the A operand over the tile's 64 rows.
-template <typename T, int DP>
-__device__ __forceinline__ void acc_product(float (&acc)[DP / 8][4], const float (&c)[kChunks][4],
-                                            const T* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    uint32_t a[4];
-    acc_to_a<T>(a, c, kk);
-#pragma unroll
-    for (int jd = 0; jd < DP / 8; ++jd) {
-      uint32_t b[2];
-      load_b_trans(b, tile, DP + 8, kk * 16, jd * 8, lane);
-      mma<T>(acc[jd], a, b);
-    }
-  }
-}
-
-// Rows row0 .. row0 + 63 of one (image, head) of an [n, L, h, d] tensor at
-// type T (src points at its row 0, rows row_stride apart, 16-byte aligned)
-// into dst [64, DP + 8] at T, in 16-byte vectors: zeros past L and d.
-template <typename T, int DP>
-__device__ __forceinline__ void stage_rows16(T* dst, const T* __restrict__ src, int64_t row_stride,
-                                             int row0, int L, int d) {
-  constexpr int V = DP / 8;
-  for (int idx = threadIdx.x; idx < kTile * V; idx += blockDim.x) {
-    const int i = idx / V;
-    const int c = (idx - i * V) * 8;
-    const int r = row0 + i;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < L && c < d) val = *reinterpret_cast<const uint4*>(src + (int64_t)r * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + i * (DP + 8) + c) = val;
-  }
-}
-
-// stage_rows16 of ROWS rows by a block of THREADS threads, with cp.async:
-// the copies are in flight until cp_async_wait, and rows past L and columns
-// past d are zero-filled without a read. Where THREADS is a multiple of the
-// DP / 8 vectors of a row, each thread keeps one column for every row it copies.
+// Rows row0 .. row0 + ROWS - 1 of one (image, head) of an [n, L, h, d]
+// tensor at type T (src points at its row 0, rows row_stride apart, 16-byte
+// aligned) into dst [ROWS, DP + 8] at T, in 16-byte vectors, by a block of
+// THREADS threads, with cp.async: the copies are in flight until
+// cp_async_wait, and rows past L and columns past d are zero-filled without a
+// read. Where THREADS is a multiple of the DP / 8 vectors of a row, each
+// thread keeps one column for every row it copies.
 template <typename T, int DP, int ROWS, int THREADS>
 __device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ src,
                                                  int64_t row_stride, int row0, int L, int d) {
@@ -223,7 +168,7 @@ __device__ __forceinline__ void stage_rows_async(T* dst, const T* __restrict__ s
   }
 }
 
-// Blocks of the forward and dK/dV grids: n h q (or k) tiles of `rows` rows,
+// Blocks of the forward, dK/dV and dQ grids: n h q (or k) tiles of `rows` rows,
 // tile index fastest, so that the tiles of one (image, head) run side by side.
 // 0 past the grid's 2^31 - 1 blocks.
 inline int64_t linear_blocks(int n, int L, int h, int rows = kTile) {

@@ -42,10 +42,14 @@
 //   168 registers (28 bytes spilled), 38,400 B of shared memory, 3 blocks
 //   (12 warps) an SM. What bounds it now: the latency of each warp's chain
 //   of four products a slab, with 12 warps an SM to hide it.
-// - dQ (bf16 / f16): 4 warps of 16 q rows, a 2-D grid (image x head, q
-//   tile), synchronous staging of each k tile; bound by that staging (no
-//   copy in flight while the tensor cores work) and by three products a
-//   tile pair.
+// - dQ (bf16 / f16): the forward's skeleton. A 1-D grid runs the 128-row q
+//   tiles of one head side by side, so each head's k and v come from device
+//   memory about once and from L2 after; each of the 8 warps holds its 16
+//   rows' q and do as A operands and their m, 1 / l and di in registers for
+//   the whole run; k and v tiles are double-buffered with cp.async; each k
+//   tile is taken in 32-key slabs (s and dp in 16 registers a thread each);
+//   warps past L and 8-key chunks past L do no work, and full k tiles take
+//   a body with no branch (dq_tile<FULL>).
 
 #include "flash_attention.cuh"
 
@@ -442,65 +446,166 @@ flash_attention_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // two of the q rows' m, 1 / l, di.
 inline size_t dkv_mma_smem(int dp) { return mma_smem_bytes(4, dp, 6 * kTile); }
 
+// Warps of a tensor-core dQ block: its q tile has 16 kDqWarps rows, and each
+// k tile is taken in slabs of kDqSlab keys.
+constexpr int kDqWarps = 8;
+constexpr int kDqRows = 16 * kDqWarps;
+constexpr int kDqSlab = 32;
+
+// One k tile of dQ for one warp's 16 q rows (q and do rows as A operands qa,
+// da; the rows' m, 1 / l and di in registers), in slabs of kDqSlab keys, those
+// that hold a key only: s = q k^T and dp = do v^T over the slab's 8-key chunks
+// that hold a key, p and ds from them, then dq += (ds at k's type) k over its
+// 16-key steps that hold a key, so that s and dp live in 2 kDqSlab / 8
+// registers a thread, not 16. FULL: all 64 keys lie before L, so nothing is
+// skipped or masked and the code has no branch. Rows past L need no mask:
+// their q and do are zeros, so their ds is 0, and their dq is not stored.
+template <typename T, int DP, bool FULL>
+__device__ __forceinline__ void dq_tile(float (&dq_acc)[DP / 8][4], const uint32_t (&qa)[DP / 16][4],
+                                        const uint32_t (&da)[DP / 16][4], const T* Ks,
+                                        const T* Vs, const float (&m)[2], const float (&inv_l)[2],
+                                        const float (&di)[2], int k0, int L, float scale,
+                                        int lane) {
+  constexpr int LD = DP + 8;
+  constexpr int SC = kDqSlab / 8;  // 8-key chunks a slab
+  const int t = lane & 3;
+  const int nc = FULL ? kChunks : min(kChunks, (L - k0 + 7) / 8);  // chunks that hold a key
+#pragma unroll
+  for (int sl = 0; sl < kTile / kDqSlab; ++sl) {
+    if (!FULL && sl * SC >= nc) break;
+    float s[SC][4], dp[SC][4];  // rows: the warp's queries; columns: the slab's keys
+    zero_acc(s);
+    zero_acc(dp);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < SC; j += 2) {
+        const int jc = sl * SC + j;  // the chunk's index in the tile
+        if (FULL || jc < nc) {
+          uint32_t b0[2], b1[2];
+          load_b_x4(b0, b1, Ks, LD, jc * 8, kk * 16, lane);
+          mma<T>(s[j], qa[kk], b0);
+          if (FULL || jc + 1 < nc) mma<T>(s[j + 1], qa[kk], b1);
+          load_b_x4(b0, b1, Vs, LD, jc * 8, kk * 16, lane);
+          mma<T>(dp[j], da[kk], b0);
+          if (FULL || jc + 1 < nc) mma<T>(dp[j + 1], da[kk], b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = FULL || k0 + (sl * SC + j) * 8 + 2 * t + (e & 1) < L;  // 0 past L
+        p_ds(s[j][e], dp[j][e], ok, m[e >> 1], inv_l[e >> 1], di[e >> 1], scale);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < SC / 2; ++kk) {
+      const int ks = sl * SC / 2 + kk;  // the 16-key step's index in the tile
+      if (FULL || 2 * ks < nc) {
+        uint32_t a[4];
+        acc_to_a<T>(a, dp, kk);
+#pragma unroll
+        for (int jd = 0; jd < DP / 8; jd += 2) {
+          uint32_t b0[2], b1[2];
+          load_b_trans_x4(b0, b1, Ks, LD, ks * 16, jd * 8, lane);
+          mma<T>(dq_acc[jd], a, b0);
+          mma<T>(dq_acc[jd + 1], a, b1);
+        }
+      }
+    }
+  }
+}
+
+// The tensor-core dQ, the forward's skeleton with dQ's products. Block x of
+// the 1-D grid takes q tile x % n_tiles of (image x head) x / n_tiles, so the
+// q tiles of one head run side by side and read its k and v from L2 after
+// the first. kDqWarps warps, warp w owning q rows 16 w .. 16 w + 15 of the
+// tile (a warp whose rows all lie past L only helps stage); its q and do rows
+// are read once from shared memory into A operands and its rows' m, 1 / l
+// and di into registers, for the whole run. k and v tiles are
+// double-buffered with cp.async, so tile it + 1 is in flight while tile it
+// is multiplied (dq_tile), behind one barrier a tile.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kMmaThreads)
+__global__ void __launch_bounds__(32 * kDqWarps, (DP <= 64 ? 16 : 8) / kDqWarps)
 flash_attention_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ m_in, const float* __restrict__ l_in,
                               const float* __restrict__ di_in, T* __restrict__ dq, int L, int h,
-                              int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale) {
+                              int d, int64_t s_b, int64_t s_l, int64_t s_h, float scale,
+                              int n_tiles) {
   constexpr int LD = DP + 8;
+  constexpr int TILE = kTile * LD;
+  constexpr int THREADS = 32 * kDqWarps;
+  constexpr int KD = DP / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [64, LD] each
-  T* dOs = Qs + kTile * LD;
-  T* Ks = dOs + kTile * LD;
-  T* Vs = Ks + kTile * LD;
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kDqRows, LD]
+  T* dOs = Qs + kDqRows * LD;              // [kDqRows, LD]
+  T* KVs = dOs + kDqRows * LD;             // [2 buffers][k, v][64, LD]
 
-  const int bh = blockIdx.x;
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x - bh * n_tiles) * kDqRows;
   const int b = bh / h;
   const int head = bh - b * h;
-  const int q0 = blockIdx.y * kTile;
   const int64_t base = (int64_t)b * s_b + (int64_t)head * s_h;
-  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;
+  const int64_t do_base = (int64_t)b * L * h * d + (int64_t)head * d;  // do is contiguous
   const int64_t row_base = (int64_t)bh * L;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first q row
+  const bool active = row0 < L;
+  const int nk = (L + kTile - 1) / kTile;
 
-  stage_rows16<T, DP>(Qs, q + base, s_l, q0, L, d);
-  stage_rows16<T, DP>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
-  float m[2], inv_l[2], di[2];  // this thread's rows q0 + 16 warp + lane / 4 (+ 8)
+  stage_rows_async<T, DP, kDqRows, THREADS>(Qs, q + base, s_l, q0, L, d);
+  stage_rows_async<T, DP, kDqRows, THREADS>(dOs, dout + do_base, (int64_t)h * d, q0, L, d);
+  stage_rows_async<T, DP, kTile, THREADS>(KVs, k + base, s_l, 0, L, d);
+  stage_rows_async<T, DP, kTile, THREADS>(KVs + TILE, v + base, s_l, 0, L, d);
+  cp_async_commit();
+  float m[2], inv_l[2], di[2];  // this thread's rows row0 + lane / 4 (+ 8): 0, 1, 0 past L
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int i = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    const int i = row0 + (lane >> 2) + 8 * r;
     m[r] = i < L ? m_in[row_base + i] : 0.f;
     inv_l[r] = i < L ? 1.f / l_in[row_base + i] : 1.f;
     di[r] = i < L ? di_in[row_base + i] : 0.f;
   }
 
+  uint32_t qa[KD][4], da[KD][4];  // the warp's q and do rows: A operands of q k^T and do v^T
   float dq_acc[DP / 8][4];
   zero_acc(dq_acc);
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();  // the last tile's reads of Ks and Vs are done
-    stage_rows16<T, DP>(Ks, k + base, s_l, k0, L, d);
-    stage_rows16<T, DP>(Vs, v + base, s_l, k0, L, d);
-    __syncthreads();
-
-    float p[kChunks][4], ds[kChunks][4];  // rows: the warp's queries; columns: the k tile
-    tile_product<T, DP, LD>(p, Qs, warp * 16, Ks, lane);    // s = q k^T
-    tile_product<T, DP, LD>(ds, dOs, warp * 16, Vs, lane);  // dp = do v^T
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile it has landed, and every read of the other buffer is done
+    const int k0 = it * kTile;
+    if (it + 1 < nk) {
+      T* nxt = KVs + ((it + 1) & 1) * 2 * TILE;
+      stage_rows_async<T, DP, kTile, THREADS>(nxt, k + base, s_l, k0 + kTile, L, d);
+      stage_rows_async<T, DP, kTile, THREADS>(nxt + TILE, v + base, s_l, k0 + kTile, L, d);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    if (it == 0) {
 #pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool ok = q0 + warp * 16 + (lane >> 2) + 8 * r < L && k0 + j * 8 + 2 * t + (e & 1) < L;
-        p_ds(p[j][e], ds[j][e], ok, m[r], inv_l[r], di[r], scale);
+      for (int kk = 0; kk < KD; ++kk) {
+        load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+        load_a(da[kk], dOs, LD, warp * 16, kk * 16, lane);
       }
     }
-    acc_product<T, DP>(dq_acc, ds, Ks, lane);  // dq += (ds at k's type) k
+    const T* Ks = KVs + (it & 1) * 2 * TILE;
+    if (k0 + kTile <= L)
+      dq_tile<T, DP, true>(dq_acc, qa, da, Ks, Ks + TILE, m, inv_l, di, k0, L, scale, lane);
+    else
+      dq_tile<T, DP, false>(dq_acc, qa, da, Ks, Ks + TILE, m, inv_l, di, k0, L, scale, lane);
   }
-  store_rows_mma<T, DP>(dq, dq_acc, b, head, q0 + warp * 16, L, h, d, lane);
+  if (!active) return;
+  store_rows_mma<T, DP>(dq, dq_acc, b, head, row0, L, h, d, lane);
+}
+
+// Shared memory of the tensor-core dQ: the q and do tiles and two buffers of
+// k and v tiles.
+inline size_t dq_mma_smem(int dp) {
+  return mma_smem_bytes(4, dp, 0) + (size_t)2 * kDqRows * (dp + 8) * 2;
 }
 
 enum class Which { kDkv, kDq };
@@ -566,14 +671,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
         qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), static_cast<T*>(g1), L, h, d, s_b, s_l,
         s_h, scale, (L + kTile - 1) / kTile);
   } else {
-    const dim3 grid((unsigned)((int64_t)n * h), (unsigned)((L + kTile - 1) / kTile));
-    const size_t smem = mma_smem_bytes(4, DP, 0);
+    const size_t smem = dq_mma_smem(DP);
     auto kernel = flash_attention_dq_mma_kernel<T, DP>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, smem, stream>>>(qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), L,
-                                                h, d, s_b, s_l, s_h, scale);
+    kernel<<<(unsigned)linear_blocks(n, L, h, kDqRows), 32 * kDqWarps, smem, stream>>>(
+        qt, kt, vt, dot, m, l, di, static_cast<T*>(g0), L, h, d, s_b, s_l, s_h, scale,
+        (L + kDqRows - 1) / kDqRows);
   }
   return cudaGetLastError();
 }
@@ -598,8 +703,8 @@ cudaError_t mma_resources_dp(int* out) {
     return kernel_resources(flash_attention_dkv_mma_kernel<T, DP>, kMmaThreads, dkv_mma_smem(DP),
                             out);
   else
-    return kernel_resources(flash_attention_dq_mma_kernel<T, DP>, kMmaThreads,
-                            mma_smem_bytes(4, DP, 0), out);
+    return kernel_resources(flash_attention_dq_mma_kernel<T, DP>, 32 * kDqWarps, dq_mma_smem(DP),
+                            out);
 }
 
 template <Which W, typename T>

@@ -1,16 +1,19 @@
 """Time the flash-attention kernels at ViT-B/16's training shape on the card,
-and split the forward's and dK/dV's time into products and streaming.
+and split the time of the forward, dK/dV and dQ into products and streaming.
 
-    python tests/perf/flash_kernels_cuda.py                     # this checkout
-    python tests/perf/flash_kernels_cuda.py full nocomp nomem   # and two diagnostic copies
+    python tests/perf/flash_kernels_cuda.py                          # this checkout
+    python tests/perf/flash_kernels_cuda.py full nocomp nomem dq64   # and three edited copies
 
-`nocomp` is a copy of `passl_tpu_torch/` whose forward and dK/dV kernels skip
-their products (staging, barriers and stores stay); `nomem` one whose kernels
-stage only their first tile and reuse it. Both write wrong outputs and exist
-only to be timed. Each copy builds under `build/flash_variants/<name>/`
-(all builds side by side) and is timed in a process of its own, in the order
-given and then in reverse. Prints one JSON line a run: CUDA-event ms a
-launch (mean of 50 after 5 warm-up) of the forward, dK/dV and dQ.
+`nocomp` is a copy of `passl_tpu_torch/` whose tensor-core forward, dK/dV
+and dQ kernels skip their products (staging, barriers and stores stay);
+`nomem` one whose three kernels stage only their first streamed tile and
+reuse it. Both write wrong outputs and exist only to be timed. `dq64` is
+a copy whose dQ takes 64-row q tiles of 4 warps instead of 128 rows of 8:
+the other tile height, right and timed beside the checkout's. Each copy
+builds under `build/flash_variants/<name>/` (all builds side by side) and
+is timed in a process of its own, in the order given and then in reverse.
+Prints one JSON line a run: CUDA-event ms a launch (mean of 50 after 5
+warm-up) of the forward, dK/dV and dQ.
 """
 from __future__ import annotations
 
@@ -22,14 +25,26 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 SHAPE = (128, 197, 12, 64)  # ViT-B/16 training, bf16
-EDITS = {  # (source, text, replacement)
-    "nocomp": [("flash_attention.cu", "    if (!active) continue;", "    continue;"),
+# variant: [(source, anchor, replacement, the kernels whose code holds the anchor)];
+# every occurrence of an anchor is replaced
+EDITS = {
+    "nocomp": [("flash_attention.cu", "    if (!active) continue;", "    continue;",
+                ("flash_attention_fwd_mma_kernel",)),
                ("flash_attention_bwd.cu", "    if (active) {\n      const T* Qs",
-                "    if (false) {\n      const T* Qs")],
+                "    if (false) {\n      const T* Qs", ("flash_attention_dkv_mma_kernel",)),
+               ("flash_attention_bwd.cu", "    if (!active) continue;", "    continue;",
+                ("flash_attention_dq_mma_kernel",))],
     "nomem": [("flash_attention.cu", "      stage_rows_async<T, DP, kTile, THREADS>(nxt",
-               "      if (false) stage_rows_async<T, DP, kTile, THREADS>(nxt"),
+               "      if (false) stage_rows_async<T, DP, kTile, THREADS>(nxt",
+               ("flash_attention_fwd_mma_kernel",)),
               ("flash_attention_bwd.cu", "      stage_rows_async<T, DP, kTile, kMmaThreads>(nxt",
-               "      if (false) stage_rows_async<T, DP, kTile, kMmaThreads>(nxt")],
+               "      if (false) stage_rows_async<T, DP, kTile, kMmaThreads>(nxt",
+               ("flash_attention_dkv_mma_kernel",)),
+              ("flash_attention_bwd.cu", "      stage_rows_async<T, DP, kTile, THREADS>(nxt",
+               "      if (false) stage_rows_async<T, DP, kTile, THREADS>(nxt",
+               ("flash_attention_dq_mma_kernel",))],
+    "dq64": [("flash_attention_bwd.cu", "constexpr int kDqWarps = 8;", "constexpr int kDqWarps = 4;",
+              ())],
 }
 BUILD = "from passl_tpu_torch.ops import _build; _build.load()"
 
@@ -42,7 +57,7 @@ def variant_root(name: str) -> Path:
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(REPO / "passl_tpu_torch", root / "passl_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    for src, text, repl in EDITS[name]:
+    for src, text, repl, _ in EDITS[name]:
         path = root / "passl_tpu_torch" / "csrc" / src
         code = path.read_text()
         if text not in code:

@@ -293,13 +293,17 @@ def _qkv_on(device, dtype, n, l, h, d, seed):
 # the edges of the 64-row tiles and their 16-row warps and 8-key chunks: l
 # just below, at and above 64 and 128 (in d = 8, 64 and 128), l = 193 (a last
 # tile of one 16-row group and one key chunk), ViT-B/16 at 384 (577), and 24
-# ViT-B/16 images, whose 1,152 blocks run in more than one wave of the card
+# ViT-B/16 images, whose 1,152 blocks run in more than one wave of the card;
+# last, the edges of the 128-row q tiles (forward and dQ) and of their 16-row
+# warps: l = 144 (a second tile of one warp), 255 and 256 (one row short of
+# and at two full tiles) and 383 (a third tile whose last warp holds 15 rows)
 CARD_SHAPES = [(2, 197, 12, 64), (2, 50, 12, 64), (2, 197, 16, 64), (2, 257, 16, 80),
                (1, 257, 16, 104), (2, 197, 12, 32), (2, 65, 2, 32), (3, 1, 2, 16),
                (2, 128, 2, 64), (2, 100, 2, 8), (1, 70, 2, 128),
                (2, 63, 2, 64), (2, 64, 3, 8), (2, 65, 2, 128), (2, 127, 2, 64), (1, 128, 2, 128),
                (2, 129, 3, 64), (2, 193, 2, 64), (1, 193, 2, 8), (1, 577, 4, 64),
-               (24, 197, 12, 64)]
+               (24, 197, 12, 64), (2, 144, 2, 64), (1, 255, 2, 64), (1, 256, 2, 32),
+               (2, 383, 2, 128)]
 
 
 @pytest.mark.cuda
