@@ -308,9 +308,7 @@ def _time_pair(kernel, plain, nbytes: int, flops: float, dtype: torch.dtype,
 
 
 def _fmt(rec: dict) -> str:
-    def num(v):
-        return f"{v:.6g}" if isinstance(v, float) else str(v)
-    return ", ".join(f"{k}=[{', '.join(map(num, v))}]" if isinstance(v, list) else f"{k}={num(v)}"
+    return ", ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in rec.items())
 
 

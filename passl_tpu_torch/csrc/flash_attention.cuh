@@ -2,7 +2,7 @@
 // (flash_attention.cu, flash_attention_bwd.cu), which have two paths.
 //
 // Every kernel works on 64-row tiles of q, k, v (and do) for one (image,
-// head) (the tensor-core forward on 128-row q tiles) and on the tiles of
+// head) (the tensor-core forward and dQ on 128-row q tiles) and on the tiles of
 // scores between a q tile and a k tile.
 // q, k and v are [n, L, h, d] at the caller's strides (s_b, s_l, s_h; the
 // last dim contiguous): views of the projection qkv [n, L, 3, h, d] are

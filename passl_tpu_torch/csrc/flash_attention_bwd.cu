@@ -24,8 +24,9 @@
 // Design. dK/dV: one block per (image x head, 64-row k tile), k and v
 // staged once; a loop over 64-row q tiles stages q and do, recomputes p,
 // adds p^T do to dv, forms ds from do v^T, and adds ds^T q to dk, in
-// registers. dQ: one block per (image x head, 64-row q tile), q and do
-// staged once; a loop over k tiles stages k and v and adds ds k to dq.
+// registers. dQ: one block per (image x head, q tile of 64 rows in f32,
+// 128 in bf16 / f16), q and do staged once; a loop over 64-row k tiles
+// stages k and v and adds ds k to dq.
 // Every block owns its outputs: there are no atomics, so both are bitwise
 // the same on every launch. The split into two kernels is the library's:
 // it spends the recompute of p twice to need no reduction across blocks.
@@ -39,7 +40,7 @@
 //   k and v rows as A operands and takes the q tile in 16-row slabs (p and
 //   ds in 16 registers a thread); warps past L and slabs past L do no work,
 //   and full tiles take a body with no branch (dkv_tile<FULL>). At d = 64:
-//   168 registers (28 bytes spilled), 38,400 B of shared memory, 3 blocks
+//   168 registers (32 bytes spilled), 38,400 B of shared memory, 3 blocks
 //   (12 warps) an SM. What bounds it now: the latency of each warp's chain
 //   of four products a slab, with 12 warps an SM to hide it.
 // - dQ (bf16 / f16): the forward's skeleton. A 1-D grid runs the 128-row q
@@ -49,7 +50,11 @@
 //   the whole run; k and v tiles are double-buffered with cp.async; each k
 //   tile is taken in 32-key slabs (s and dp in 16 registers a thread each);
 //   warps past L and 8-key chunks past L do no work, and full k tiles take
-//   a body with no branch (dq_tile<FULL>).
+//   a body with no branch (dq_tile<FULL>). At d = 64: 128 registers (16
+//   bytes spilled), 73,728 B of shared memory, 2 blocks (16 warps) an SM.
+//   What bounds it now: as in the other two, the latency of each warp's
+//   chain of products, exps and products a slab, with 16 warps an SM to
+//   hide it; 128-key tiles and wgmma are the next step.
 
 #include "flash_attention.cuh"
 

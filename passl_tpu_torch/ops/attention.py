@@ -53,7 +53,7 @@ _LANES = 128
 # `auto` turns to flash only from this many tokens, as in the JAX package
 _FLASH_AUTO_MIN_SEQ = 4096
 MAX_D = 128  # the kernels' limits: d <= 128 and d % 8 == 0
-_TILE = 64  # rows of the kernels' q and k tiles: the grids have n * h * ceil(l / 64) blocks
+_TILE = 64  # the kernels' smallest tile: no grid has more than n * h * ceil(l / 64) blocks
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DtypeLike = Union[str, torch.dtype]
 
