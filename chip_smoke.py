@@ -12,9 +12,13 @@ Run from the repo root:  python3 chip_smoke.py
    bound: the larger of its bytes (each input read once, each output
    written once) over 3.35 TB/s and its products' flops over the card's
    peak for the inputs' type (989 TFLOP/s bf16/f16, 67 TFLOP/s f32).
-4. Holds the talking-heads backward kernel against its plain version at the
-   same shapes (ds, dproj_l, dproj_w), checks that two launches give bitwise
-   equal weight gradients, and times both at CaiT-S24's shapes.
+4. Holds the talking-heads backward against its plain version at the same
+   shapes (ds, dproj_l, dproj_w), through whichever of its two kernels the C
+   entry point picks (the warp-row kernel for bf16 / f16 with h <= 8 and
+   k <= 256, the block-row kernel otherwise; both run here), checks that two
+   launches give bitwise equal weight gradients, times both at CaiT-S24's
+   shapes, and logs the warp-row kernel's registers, shared memory, blocks an
+   SM and spills there.
 5. Holds the window-attention forward kernel against its plain version at
    Swin-T's four stage shapes (serving batch 32, training batch 128), with no
    mask, one mask for every group, d = 59 and 64, and Swin-B's head counts,
@@ -57,8 +61,9 @@ Run from the repo root:  python3 chip_smoke.py
    8 steps. Checks: the first step's per-parameter gradients of the kernel
    path against the plain path (th_impl=einsum) from the same seed and batch;
    every loss finite; 24 forward and 24 backward kernel launches per step;
-   the checkpoint resumes with its step; the eval loop gives top-1 and top-5
-   over 256 images. Prints both paths' step time, images/s, reader-cost
+   the checkpoint resumes with its step, through the engine's loader with 2
+   workers and no prefetch thread left after it; the eval loop gives top-1
+   and top-5 over 256 images. Prints both paths' step time, images/s, reader-cost
    share and peak memory, and a torch.profiler view of one step of each.
 10. Trains Swin-T at 224 the same way, full width and depth, bf16, batch 128
    (the recipe's per-card batch), 8 steps, with Model.attn_impl=fused: 12
@@ -116,6 +121,7 @@ import json
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Callable, Optional
 
@@ -124,6 +130,7 @@ import torch
 import torch.nn.functional as F
 
 from passl_tpu_torch.data import build_dataloader, to_device
+from passl_tpu_torch.data.loader import PREFETCH_THREAD
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
@@ -135,7 +142,9 @@ from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_attention_dq, flash_attention_dq_ref,
                                            flash_attention_fwd, flash_attention_fwd_ref,
                                            flash_kernel_resources)
-from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax, talking_heads_softmax_bwd,
+from passl_tpu_torch.ops.talking_heads import (talking_heads_bwd_kernel_for,
+                                               talking_heads_bwd_resources,
+                                               talking_heads_softmax, talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
 from passl_tpu_torch.ops.window_attention import (fused_window_attention,
@@ -359,7 +368,8 @@ def phase_kernel_bwd() -> dict:
         check(ds.dtype == dtype and ds.shape == s.shape, f"backward ds {ds.dtype} {tuple(ds.shape)}")
         tol = TOL[dtype]
         torch.testing.assert_close(ds.float(), ref[0].float(), atol=tol, rtol=tol)
-        rec = {"max_abs_err": (ds.float() - ref[0].float()).abs().max().item(), "tol": tol,
+        rec = {"kernel": talking_heads_bwd_kernel_for(shape[1], shape[3], dtype),
+               "max_abs_err": (ds.float() - ref[0].float()).abs().max().item(), "tol": tol,
                "dproj_l_rel_err": _wgrad_err(dwl, ref[1]), "dproj_w_rel_err": _wgrad_err(dww, ref[2]),
                "wgrad_tol": WGRAD_TOL}
         check(rec["dproj_l_rel_err"] <= WGRAD_TOL and rec["dproj_w_rel_err"] <= WGRAD_TOL,
@@ -375,6 +385,10 @@ def phase_kernel_bwd() -> dict:
                                   lambda: talking_heads_softmax_bwd_ref(s, dp, wl, ww),
                                   3 * s.numel() * s.element_size(),
                                   10 * shape[1] * s.numel(), dtype))
+            # the same 5 h^2 multiply-adds a column on the CUDA cores alone (f32 peak)
+            rec["cuda_core_floor_ms"] = 10 * shape[1] * s.numel() / PEAK_FLOPS[torch.float32] * 1e3
+            if rec["kernel"] == "warp-row":
+                rec["resources"] = talking_heads_bwd_resources(dtype, shape[1], shape[3])
         results[(shape, dtype)] = rec
         log(f"[kernel-bwd] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
             ", repeatable bitwise")
@@ -866,12 +880,13 @@ class TrainSpec:
     plain: tuple  # overrides of the plain path timed beside it
     grad_plain: tuple  # overrides of the path the first-step gradients are held against
     kernel_fed: Callable[[str], bool]  # the parameters whose gradients the backward kernels give
+    resume_workers: int = 0  # loader workers of the one-step resume
 
 
 CAIT_TRAIN = TrainSpec("CaiT-S24", CONFIG, TRAIN_BATCH, DEPTH, 2 * DEPTH, talking_heads_softmax,
                        (talking_heads_softmax_bwd,), (), ("Model.th_impl=einsum",),
                        ("Model.th_impl=einsum",),
-                       lambda n: n.endswith("proj_l") or n.endswith("proj_w"))
+                       lambda n: n.endswith("proj_l") or n.endswith("proj_w"), resume_workers=2)
 # the fused path's softmax is f32 whatever softmax_dtype says; its gradients
 # are held against the einsum path at softmax_dtype float32
 SWIN_TRAIN = TrainSpec("Swin-T", SWIN_CONFIG, SWIN_TRAIN_BATCH, SWIN_BLOCKS, SWIN_BLOCKS,
@@ -887,11 +902,11 @@ VIT_TRAIN = TrainSpec("ViT-B/16", VIT_CONFIG, VIT_TRAIN_BATCH, VIT_BLOCKS, VIT_B
                       lambda n: n.endswith("attn.qkv.weight"))
 
 
-# loader worker processes of the timed runs; the one-step resume and the eval
-# load in the main thread (no workers, no prefetch thread), since each pool
-# forks a process that holds CUDA and profiler threads, where a fork can
-# deadlock a worker, and a prefetch thread that runs the transforms itself
-# can be inside C++ when the interpreter exits, which then aborts
+# loader worker processes of the timed runs. The Engine forks its pools before
+# it moves the model to the card, and each loop joins its prefetch thread when
+# it ends; CaiT-S24's one-step resume goes through the engine's loader with 2
+# workers, as tools/train runs it (`TrainSpec.resume_workers`). The other
+# resumes and the evals load in the main thread (no workers, no prefetch thread)
 WORKERS = 6  # leaves cores to the training process on an 8-core host
 
 
@@ -1052,14 +1067,20 @@ def phase_train(spec: TrainSpec) -> dict:
         # resume: one more step from the checkpoint, then evaluate it
         e_r = Engine(_train_config(spec, os.path.join(tmp, "resume"), *spec.kernel,
                                    f"Global.checkpoint={ckpt}",
-                                   f"Global.max_train_step={TRAIN_STEPS + 1}", workers=0),
+                                   f"Global.max_train_step={TRAIN_STEPS + 1}",
+                                   workers=spec.resume_workers),
                      mode="train", device="cuda")
+        check(e_r.train_dataloader.num_workers == spec.resume_workers,
+              f"{spec.tag}: resume loader has {e_r.train_dataloader.num_workers} workers")
         e_r.train()
+        check(not [t for t in threading.enumerate() if t.name == PREFETCH_THREAD],
+              f"{spec.tag}: a loader prefetch thread outlived the resume")
         hist = e_r.train_loop.history
         check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1 and np.isfinite(hist[0]["loss"]),
               f"{spec.tag}: resume from step {TRAIN_STEPS}: history {hist}")
-        log(f"[train] {spec.tag} resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
-            f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
+        log(f"[train] {spec.tag} resumed from {ckpt} at step {TRAIN_STEPS} with "
+            f"{spec.resume_workers} loader workers, trained step {hist[0]['step']}: "
+            f"loss {hist[0]['loss']:.5f}")
         del e_r
         e_v = Engine(_train_config(spec, os.path.join(tmp, "eval"), *spec.kernel,
                                    f"Global.checkpoint={ckpt}", workers=0),

@@ -1,4 +1,8 @@
 # Copied from passl_tpu/data/loader.py; the port keeps its own copy and imports nothing of passl_tpu.
+# One change beyond the imports: the prefetch thread of `DataLoader.__iter__` stops and is
+# joined when its consumer stops reading early (a loop that ends at max_train_step, an eval
+# that breaks, a closed iterator); in the JAX package's loader it stays blocked on a full
+# queue until the process exits.
 """Host data loading: samplers, collate, multiprocess prefetch loader.
 
 Capability parity with reference `passl/data/__init__.py:25-83`
@@ -159,6 +163,9 @@ def _worker_fetch(args):
     return _WORKER_DATASET[idx]
 
 
+PREFETCH_THREAD = "passl-loader-prefetch"  # the name of DataLoader's prefetch threads
+
+
 class DataLoader:
     """Iterable of collated numpy batches with worker pool + prefetch."""
 
@@ -294,6 +301,7 @@ class DataLoader:
 
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, 1))
         stop = object()
+        halt = threading.Event()  # set when the consumer stops reading early
 
         def producer():
             # a decode/worker failure must FAIL the run, not silently
@@ -301,22 +309,34 @@ class DataLoader:
             try:
                 for item in gen:
                     q.put(item)
+                    if halt.is_set():
+                        return
                 q.put(stop)
             except BaseException as exc:  # noqa: BLE001
                 q.put(("__loader_error__", exc))
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name=PREFETCH_THREAD, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            if isinstance(item, tuple) and len(item) == 2 \
-                    and isinstance(item[0], str) and item[0] == "__loader_error__":
-                t.join()
-                raise RuntimeError("dataloader worker failed") from item[1]
-            yield item
-        t.join()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, tuple) and len(item) == 2 \
+                        and isinstance(item[0], str) and item[0] == "__loader_error__":
+                    t.join()
+                    raise RuntimeError("dataloader worker failed") from item[1]
+                yield item
+        finally:
+            # an early stop (GeneratorExit here): free the queue until the
+            # producer sees `halt` after its next put, then join it
+            halt.set()
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    t.join(0.01)
+            t.join()
 
     def __len__(self):
         return len(self.batch_sampler)

@@ -20,8 +20,13 @@ optimizer, and the train step moves each target after the optimizer step.
 shape mismatches keep the init, a `pos_embed` of another grid is resized,
 keys the model lacks are ignored.
 
+The loaders' worker pools fork in `__init__`, before the model moves to its
+device, so no worker is forked from a process that holds a CUDA context.
+
 Not ported yet, and refused when the config asks for them: meshes and
-sharding (`DistributedStrategy` degrees above 1, `recompute`),
+sharding (`DistributedStrategy` degrees above 1, `recompute`), a
+`torch.distributed` world of more than one process (nothing reduces the
+gradients yet),
 `param_transforms` and `optimizer_overrides` (SwAV, DINO and others), hooks
 and the profiler.
 """
@@ -53,6 +58,14 @@ _PARALLEL_KEYS = ("tensor_parallel", "mp_degree", "sharding", "sharding_degree",
 
 
 def _refuse_unported(config: Dict[str, Any]) -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        # build_dataloader would give each rank its share of the batch, and
+        # nothing would reduce the gradients: each rank would train its own replica
+        raise NotImplementedError(
+            f"a torch.distributed world of {dist.get_world_size()} processes: data "
+            "parallelism is not ported yet, and the port does not reduce gradients "
+            "across processes (no all_reduce, no DDP)")
     ds = dict(config.get("DistributedStrategy", {}) or {})
     for key in _PARALLEL_KEYS:
         v = ds.get(key)
@@ -118,6 +131,9 @@ class Engine:
             self.eval_dataloader = build_dataloader(dl_cfg["Eval"], "Eval", seed=self.seed)
             if mode != "train":
                 self.global_batch_size = dl_cfg["Eval"]["sampler"].get("batch_size", 128)
+        for loader in (self.train_dataloader, self.eval_dataloader):
+            if loader is not None:  # fork the workers now, before the model goes to the card
+                loader._get_pool()
         self.steps_per_epoch = len(self.train_dataloader) if self.train_dataloader else 0
         self.total_steps = self.steps_per_epoch * self.epochs
 

@@ -12,6 +12,7 @@ are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import signal
@@ -133,23 +134,25 @@ class TrainingEpochLoop:
             e.train_dataloader.set_skip(skip_steps)
         metrics = None
         tic = time.perf_counter()
-        for i, batch in enumerate(e.train_dataloader, start=skip_steps):
-            self.time_info["reader_cost"].update(time.perf_counter() - tic)
-            metrics = e.train_step(e.state, to_device(e.prepare_batch(batch), e.device))
-            if (i + 1) % e.print_batch_step == 0:
-                # the log line reads the metrics, which waits for the step to finish
-                m = {k: float(v) for k, v in metrics.items()}
-                self.time_info["batch_cost"].update(time.perf_counter() - tic)
-                self.log_line(epoch, i + 1, steps_per_epoch, m)
-            else:
-                self.time_info["batch_cost"].update(time.perf_counter() - tic)
-            tic = time.perf_counter()
-            global_step = (epoch - 1) * steps_per_epoch + i + 1
-            if e.eval_during_train and e.eval_unit == "step" and global_step % e.eval_interval == 0:
-                self._run_eval(epoch)
-            if self._interrupted or (e.max_train_step and global_step >= e.max_train_step):
-                self.last_metrics = metrics
-                return True
+        # closing the iterator on an early return stops and joins the loader's prefetch thread
+        with contextlib.closing(iter(e.train_dataloader)) as batches:
+            for i, batch in enumerate(batches, start=skip_steps):
+                self.time_info["reader_cost"].update(time.perf_counter() - tic)
+                metrics = e.train_step(e.state, to_device(e.prepare_batch(batch), e.device))
+                if (i + 1) % e.print_batch_step == 0:
+                    # the log line reads the metrics, which waits for the step to finish
+                    m = {k: float(v) for k, v in metrics.items()}
+                    self.time_info["batch_cost"].update(time.perf_counter() - tic)
+                    self.log_line(epoch, i + 1, steps_per_epoch, m)
+                else:
+                    self.time_info["batch_cost"].update(time.perf_counter() - tic)
+                tic = time.perf_counter()
+                global_step = (epoch - 1) * steps_per_epoch + i + 1
+                if e.eval_during_train and e.eval_unit == "step" and global_step % e.eval_interval == 0:
+                    self._run_eval(epoch)
+                if self._interrupted or (e.max_train_step and global_step >= e.max_train_step):
+                    self.last_metrics = metrics
+                    return True
         self.last_metrics = metrics
         return False
 
@@ -196,31 +199,32 @@ class ClassificationEvaluationLoop:
         seen, denom, full_bs = 0, 0.0, None
         sums: Dict[str, float] = {}
         tic = time.perf_counter()
-        for batch in e.eval_dataloader:
-            images, labels = batch if not isinstance(batch, dict) else (batch["image"], batch["label"])
-            images, labels = np.asarray(images), np.asarray(labels)
-            bs = len(labels)
-            if seen >= n_total:
-                break
-            take = min(bs, n_total - seen)
-            full_bs = full_bs or bs
-            if bs < full_bs:  # ragged tail: pad to the steady batch size, mask the pad
-                pad = full_bs - bs
-                images = np.concatenate([images, np.repeat(images[-1:], pad, axis=0)])
-                labels = np.concatenate([labels, np.repeat(labels[-1:], pad, axis=0)])
-            valid = np.zeros(full_bs, dtype=bool)
-            valid[:take] = True
-            gi, gl, gv = to_device((images, labels.astype(np.int64), valid), e.device)
-            for suffix, step in (("", e.eval_metrics_step), ("_ema", e.eval_metrics_step_ema)):
-                if step is None:
-                    continue
-                out = step(e.state, gi, gl, gv)
-                count = float(out.pop("count"))
-                if not suffix:
-                    denom += count
-                for k, v in out.items():
-                    sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
-            seen += take
+        with contextlib.closing(iter(e.eval_dataloader)) as batches:
+            for batch in batches:
+                images, labels = batch if not isinstance(batch, dict) else (batch["image"], batch["label"])
+                images, labels = np.asarray(images), np.asarray(labels)
+                bs = len(labels)
+                if seen >= n_total:
+                    break
+                take = min(bs, n_total - seen)
+                full_bs = full_bs or bs
+                if bs < full_bs:  # ragged tail: pad to the steady batch size, mask the pad
+                    pad = full_bs - bs
+                    images = np.concatenate([images, np.repeat(images[-1:], pad, axis=0)])
+                    labels = np.concatenate([labels, np.repeat(labels[-1:], pad, axis=0)])
+                valid = np.zeros(full_bs, dtype=bool)
+                valid[:take] = True
+                gi, gl, gv = to_device((images, labels.astype(np.int64), valid), e.device)
+                for suffix, step in (("", e.eval_metrics_step), ("_ema", e.eval_metrics_step_ema)):
+                    if step is None:
+                        continue
+                    out = step(e.state, gi, gl, gv)
+                    count = float(out.pop("count"))
+                    if not suffix:
+                        denom += count
+                    for k, v in out.items():
+                        sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
+                seen += take
         if denom == 0:
             return None
         avg = {k: v / denom for k, v in sums.items()}

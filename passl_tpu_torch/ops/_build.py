@@ -111,6 +111,11 @@ def load() -> ctypes.CDLL:
     lib.passl_talking_heads_bwd.restype = i32
     lib.passl_talking_heads_bwd_blocks.argtypes = [i32, i32]
     lib.passl_talking_heads_bwd_blocks.restype = i64
+    lib.passl_talking_heads_bwd_row_kernel.argtypes = [i32, i32, i32]
+    lib.passl_talking_heads_bwd_row_kernel.restype = i32
+    # dtype, h, k, device, int[5] out
+    lib.passl_talking_heads_bwd_row_resources.argtypes = [i32, i32, i32, i32, vp]
+    lib.passl_talking_heads_bwd_row_resources.restype = i32
     lib.passl_window_attention_fwd.argtypes = [vp] * 6 + [i32] * 5 + [f32, i32, i32, vp]
     lib.passl_window_attention_fwd.restype = i32
     lib.passl_window_attention_bwd.argtypes = [vp] * 11 + [i32] * 5 + [f32, i32, i32, vp]

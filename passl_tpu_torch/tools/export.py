@@ -8,7 +8,12 @@ port's trainer wrote; a JAX `.ckpt` is refused), else from `Global.seed`
 with `Global.pretrained_model` (a torch `state_dict` file, e.g. from
 `utils.convert.flax_to_torch`) loaded over it as the JAX loader loads it
 (`utils.io.load_pretrained`), and writes
-`<Model.name>.pt` + `.json` under `Global.output_dir`.
+`<Model.name>.pt` + `.json` under `Global.output_dir`. The artifact's input
+spec takes its height, width and channels from one sample of the config's
+Eval (else Train) dataset through its transforms, as the JAX engine takes
+one loader sample (`engine.py:501,564`), whatever `Global.eval_during_train`
+says; where that dataset cannot be read (an absent ImageNet list), from
+the model's `img_size` and `in_chans`.
 
 Usage:
   python -m passl_tpu_torch.tools.export \
@@ -20,9 +25,11 @@ import argparse
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from passl_tpu_torch.core.amp import Policy, resolve_dtype
+from passl_tpu_torch.data import build_dataset
 from passl_tpu_torch.models import build_model
 from passl_tpu_torch.nn.init import init_module
 from passl_tpu_torch.utils import cfg_util, io, logger
@@ -34,6 +41,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("-o", "--override", action="append", default=[],
                     help="config options to override, e.g. -o Global.output_dir=./out")
     return ap.parse_args(argv)
+
+
+def input_spec(config: dict, model: torch.nn.Module) -> dict:
+    """The served input `[None, H, W, C]`: one sample of the Eval (else Train)
+    dataset, or the model's `img_size` where no dataset can be read."""
+    blocks = config.get("DataLoader", {}) or {}
+    block = blocks.get("Eval") or blocks.get("Train")
+    shape = None
+    if block:
+        try:
+            sample = build_dataset(block["dataset"])[0]
+        except (OSError, IndexError) as exc:  # a dataset list or folder that is absent, or empty
+            logger.warning(f"export: no sample of the dataset ({exc!r}); the model's img_size "
+                           "gives the input shape")
+        else:
+            image = np.asarray(sample[0] if isinstance(sample, tuple) else sample)
+            shape = list(image.shape) if image.ndim == 3 else list(image.shape) + [1]
+    if shape is None:
+        if not hasattr(model, "img_size"):
+            raise ValueError(f"export: {type(model).__name__} has no img_size and the config "
+                             "names no readable dataset: the input shape is unknown")
+        shape = [model.img_size, model.img_size, getattr(model, "in_chans", 3)]
+    return {"shape": [None, *shape], "dtype": "float32", "layout": "NHWC"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -78,10 +108,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"model {model_cfg.get('name')}: {n_params / 1e6:.2f}M params, "
                 f"compute dtype {compute_dtype}")
-    input_spec = {"shape": [None, model.img_size, model.img_size, model.in_chans],
-                  "dtype": "float32", "layout": "NHWC"}
     return io.export(model, output_dir, model_cfg.get("name", "inference"), model_cfg,
-                     compute_dtype, input_spec)
+                     compute_dtype, input_spec(config, model))
 
 
 if __name__ == "__main__":

@@ -139,6 +139,47 @@ def test_predict_cli(tmp_path, capsys):
     assert all(len(ln.split("\t")[1].split(", ")) == 3 for ln in lines)
 
 
+def test_export_and_predict_a_classifier_without_img_size(tmp_path):
+    """A ResNet has no `img_size`: the input spec comes from one sample of the
+    config's Eval dataset (32 x 32 x 3 here), with eval_during_train off, as
+    the JAX engine's export takes one loader sample."""
+    import yaml
+
+    with open(TINY_CFG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["Model"] = {"name": "resnet18", "num_classes": 10}
+    assert cfg["Global"]["eval_during_train"] is False
+    path = tmp_path / "resnet18_tiny.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    pt = export.main(["-c", str(path), "-o", f"Global.output_dir={tmp_path / 'art'}"])
+    assert pt == str(tmp_path / "art" / "resnet18.pt")
+    with open(tmp_path / "art" / "resnet18.json") as f:
+        assert json.load(f)["input"] == {"shape": [None, 32, 32, 3], "dtype": "float32",
+                                         "layout": "NHWC"}
+    pred = Predictor(str(tmp_path / "art"), name="resnet18", transform=NORMALIZE, device="cpu")
+    got = pred(list(_images(4)), topk=3)
+    assert len(got) == 4 and all(len(g["class_ids"]) == 3 for g in got)
+    logits = pred.predict(pred.preprocess(list(_images(4))))
+    assert logits.shape == (4, 10) and np.isfinite(logits).all()
+
+
+def test_export_spec_falls_back_to_img_size_without_a_readable_dataset(tmp_path):
+    """An ImageNet list that does not exist: the model's img_size."""
+    import yaml
+
+    with open(TINY_CFG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["Model"]["img_size"] = 48
+    cfg["DataLoader"]["Eval"]["dataset"] = {
+        "name": "ImageNetDataset", "image_root": str(tmp_path),
+        "cls_label_path": str(tmp_path / "no_such_list.txt")}
+    path = tmp_path / "cait_no_list.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    export.main(["-c", str(path), "-o", f"Global.output_dir={tmp_path}"])
+    with open(tmp_path / "CaiT.json") as f:
+        assert json.load(f)["input"]["shape"] == [None, 48, 48, 3]
+
+
 _NO_JAX = r"""
 import sys
 import numpy as np

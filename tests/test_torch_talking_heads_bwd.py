@@ -5,8 +5,11 @@ JAX package's custom VJP with its Pallas backward kernel in interpret mode
 (run as tests/test_talking_heads_kernel.py runs it: a 16-row q tile, so q=49
 is padded), in f32 and bf16, and against torch autograd of the plain
 forward; and the autograd Function's CPU path. Tests marked `cuda` hold the
-backward kernel against the plain backward on the card, check that its
-weight gradients are bitwise the same on every launch, and skip elsewhere;
+backward's two kernels (the warp-row kernel for bf16 / f16 with h <= 8 and
+k <= 256, the block-row kernel otherwise, chosen in the C entry point)
+against the plain backward on the card, at the warp-row kernel's edges and
+either side of the boundary, check that their weight gradients are bitwise
+the same on every launch, and skip elsewhere;
 they import no JAX, so `python -m pytest --noconftest -m cuda <this file>`
 runs them on a machine without it.
 """
@@ -14,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from passl_tpu_torch.ops.talking_heads import (talking_heads_softmax,
+from passl_tpu_torch.ops.talking_heads import (talking_heads_bwd_kernel_for,
+                                               talking_heads_softmax,
                                                talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
@@ -178,6 +182,48 @@ def test_bwd_kernel_matches_plain_version(cuda, shape, dtype):
     _assert_wgrad_close(dww.cpu().numpy(), ref[2].cpu().numpy(), name="dproj_w")
 
 
+def _check_against_plain(device, shape, dtype, seed):
+    s, dp, wl, ww = _on(device, dtype, *_inputs(*shape, seed=seed))
+    ds, dwl, dww = talking_heads_softmax_bwd(s, dp, wl, ww)
+    ref = talking_heads_softmax_bwd_ref(s, dp, wl, ww)
+    torch.cuda.synchronize()
+    assert ds.dtype == dtype and ds.shape == s.shape
+    torch.testing.assert_close(ds.float(), ref[0].float(), rtol=TOL[dtype], atol=TOL[dtype])
+    _assert_wgrad_close(dwl.cpu().numpy(), ref[1].cpu().numpy(), name="dproj_l")
+    _assert_wgrad_close(dww.cpu().numpy(), ref[2].cpu().numpy(), name="dproj_w")
+
+
+# the warp-row kernel's edges: k not a multiple of 32 or 16 (49, 196, 33) and
+# each columns-a-lane count (1, 2, 4, 7, 8); fewer rows than a block's 4 warps
+# (3, 1); rows that leave the last block's warps part empty (2 x 7 = 14); more
+# rows than the grid's 1,584 warps, so that some warps take one row more than
+# others (4 x 401 = 1,604; 64 x 196 = 12,544); h = 4, 6, 8
+ROW_EDGES = [(2, 8, 49, 49), (64, 8, 196, 196), (3, 8, 11, 33), (1, 8, 3, 196), (1, 4, 1, 17),
+             (2, 6, 7, 96), (4, 4, 401, 64), (2, 8, 5, 224), (2, 6, 9, 256), (3, 4, 5, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROW_EDGES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_warp_row_kernel_edges_match_plain_version(cuda, shape, dtype):
+    assert talking_heads_bwd_kernel_for(shape[1], shape[3], dtype) == "warp-row"
+    _check_against_plain(cuda, shape, dtype, seed=sum(shape))
+
+
+# either side of the boundary: k = 256 | 257, h = 8 | 16, bf16 | f32
+BOUNDARY = [((2, 8, 6, 256), torch.bfloat16, "warp-row"), ((2, 8, 6, 257), torch.bfloat16, "block-row"),
+            ((2, 8, 6, 256), torch.float16, "warp-row"), ((2, 8, 6, 257), torch.float16, "block-row"),
+            ((2, 16, 9, 196), torch.bfloat16, "block-row"), ((2, 8, 9, 196), torch.float32, "block-row"),
+            ((1, 16, 5, 49), torch.float16, "block-row"), ((1, 4, 5, 300), torch.bfloat16, "block-row")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype, kernel", BOUNDARY)
+def test_dispatch_boundary_both_kernels_match_plain_version(cuda, shape, dtype, kernel):
+    assert talking_heads_bwd_kernel_for(shape[1], shape[3], dtype) == kernel
+    _check_against_plain(cuda, shape, dtype, seed=7 + shape[3])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernel_weight_grads_are_bitwise_repeatable(cuda, dtype):
@@ -187,6 +233,20 @@ def test_bwd_kernel_weight_grads_are_bitwise_repeatable(cuda, dtype):
         again = talking_heads_softmax_bwd(s, dp, wl, ww)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype", [((64, 8, 196, 196), torch.float16),
+                                          ((4, 16, 196, 196), torch.bfloat16),
+                                          ((4, 4, 401, 64), torch.bfloat16)])
+def test_both_kernels_are_bitwise_repeatable(cuda, shape, dtype):
+    """h = 8 on the warp-row kernel, h = 16 on the block-row kernel, and a
+    warp-row grid whose warps take unequal row counts."""
+    s, dp, wl, ww = _on(cuda, dtype, *_inputs(*shape, seed=14))
+    first = talking_heads_softmax_bwd(s, dp, wl, ww)
+    again = talking_heads_softmax_bwd(s, dp, wl, ww)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
