@@ -5,8 +5,14 @@ Run from the repo root:  python3 chip_smoke.py
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
    one nvcc per source, side by side.
-3. Holds the talking-heads forward kernel against its plain PyTorch version
-   on the card at the shapes CaiT uses, and times both. Every timed kernel
+3. Holds the talking-heads forward against its plain PyTorch version on the
+   card at the shapes CaiT uses, through whichever of its two kernels the C
+   entry point picks (warp-row for bf16 / f16 with h <= 8 and k <= 256,
+   block-row otherwise), checks that two launches are bitwise equal, logs
+   the warp-row kernel's registers, shared memory, blocks an SM and spills,
+   times kernel and plain version at CaiT-S24's shapes and, for the record
+   of its next step, the kernel alone at cait_s24_384's [16, 8, 576, 576].
+   Every other timed kernel
    is timed in turns with its plain version and, where one PyTorch call
    computes the same function, that call (`library_ms`), and set against its
    bound: the larger of its bytes (each input read once, each output
@@ -144,6 +150,8 @@ from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_kernel_resources)
 from passl_tpu_torch.ops.talking_heads import (talking_heads_bwd_kernel_for,
                                                talking_heads_bwd_resources,
+                                               talking_heads_fwd_kernel_for,
+                                               talking_heads_fwd_resources,
                                                talking_heads_softmax, talking_heads_softmax_bwd,
                                                talking_heads_softmax_bwd_ref,
                                                talking_heads_softmax_ref)
@@ -152,6 +160,7 @@ from passl_tpu_torch.ops.window_attention import (fused_window_attention,
                                                   window_attention_bwd_ref, window_attention_ref)
 from passl_tpu_torch.tools import export
 from passl_tpu_torch.utils import cfg_util
+from passl_tpu_torch.utils.cuda_timing import graph_ms, loop_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "classification", "cait_s24_224_in1k.yaml")
@@ -170,6 +179,13 @@ NORMALIZE = [{"NormalizeImage": {"scale": 1.0 / 255, "mean": [0.485, 0.456, 0.40
 # most one unit in the last place of the stored type (bf16 2^-8 relative, as
 # in tests/test_talking_heads_kernel.py; f16 2^-11, doubled).
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+# the talking-heads forward (atol, rtol): its outputs are probabilities mixed
+# over heads, about 1/k each, below TOL's atol. One ulp of the stored type is
+# at most 2^-7 of the value in bf16 and 2^-10 in f16; the two f32 values
+# before that rounding (__expf against expf, sums in another order) differ by
+# under 1e-5, for which atol leaves ten times room. f32 as TOL.
+FWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 2**-7),
+           torch.float16: (1e-4, 2**-10)}
 # (shape, dtype): CaiT-S24 at 224 (h=8, q=k=196) at batch 64 and at the
 # serving batch of 32; the small (2, 4, 49, 49); cait_xs24_384's 6 heads over
 # 576 tokens in f16; cait_m36/m48's 16 heads over the longest rows (784).
@@ -182,6 +198,7 @@ CASES = [
     ((4, 6, 576, 576), torch.float16),
     ((2, 16, 784, 784), torch.bfloat16),
 ]
+LONG_ROW_CASE = (16, 8, 576, 576)  # cait_s24_384's scores at 16 images: timed alone, bf16
 SERVE_CASE = ((BATCH, 8, 196, 196), torch.bfloat16)  # what the serving path hands the kernel
 TRAIN_BATCH, TRAIN_STEPS = 64, 8
 TRAIN_CASE = ((TRAIN_BATCH, 8, 196, 196), torch.bfloat16)  # what the train step hands both kernels
@@ -276,18 +293,6 @@ def _inputs(shape, dtype, seed):
     return s, wl, ww
 
 
-def _time_ms(fn, iters: int = 50) -> float:
-    for _ in range(5):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
     """The least time the card could take: bytes over the memory rate or the
     products' flops over the peak for the inputs' type, whichever is larger."""
@@ -297,15 +302,18 @@ def _bound(nbytes: int, flops: float, dtype: torch.dtype) -> dict:
 
 
 def _time_pair(kernel, plain, nbytes: int, flops: float, dtype: torch.dtype,
-               library: Optional[Callable] = None) -> dict:
+               library: Optional[Callable] = None, kernel_timer: Callable = loop_ms) -> dict:
     """Kernel, plain version and (where there is one) the PyTorch call that
     computes the same function, timed in turns (plain, kernel, library,
     library, kernel, plain), with the kernel's rate and its bound. The
     library's two turns are kept beside their mean (`library_ms_turns`): its
-    time can move between turns, and a ranking against it names the reading."""
+    time can move between turns, and a ranking against it names the reading.
+    `kernel_timer` times the kernel's turns (`graph_ms` for a kernel shorter
+    than its wrapper's host time)."""
     fns = (plain, kernel, library, library, kernel, plain)
+    timers = (loop_ms, kernel_timer, loop_ms, loop_ms, kernel_timer, loop_ms)
     plain_a, kern_a, lib_a, lib_b, kern_b, plain_b = (
-        _time_ms(f) if f is not None else None for f in fns)
+        t(f) if f is not None else None for t, f in zip(timers, fns))
     rec = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
            "library_ms": None if library is None else (lib_a + lib_b) / 2,
            **_bound(nbytes, flops, dtype)}
@@ -331,22 +339,39 @@ def phase_kernel() -> dict:
             torch.cuda.synchronize()
             check(out.dtype == dtype and out.shape == s.shape, f"kernel output {out.dtype} {tuple(out.shape)}")
             err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL[dtype]
-            torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-            rec = {"max_abs_err": err, "tol": tol}
+            atol, rtol = FWD_TOL[dtype]
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+            check(torch.equal(out, talking_heads_softmax(s, wl, ww)),
+                  f"forward at {shape} {dtype}: two launches differ")
+            rec = {"kernel": talking_heads_fwd_kernel_for(shape[1], shape[3], dtype),
+                   "max_abs_err": err, "atol": atol, "rtol": rtol}
+            if rec["kernel"] == "warp-row":
+                rec["resources"] = talking_heads_fwd_resources(dtype, shape[1], shape[3])
             if shape[1:] == (8, 196, 196):  # CaiT-S24: time kernel and plain in turns
                 # read s, write p; the two head mixes' products, 2 h flops per
-                # score each (no PyTorch call computes this function)
+                # score each (no PyTorch call computes this function). The
+                # kernel's turns replay a CUDA graph: the wrapper's host time
+                # would pace the card at 32 images; `host_paced_ms` is the
+                # plain loop's reading, as a caller without a graph sees it
                 rec.update(_time_pair(lambda: talking_heads_softmax(s, wl, ww),
                                       lambda: talking_heads_softmax_ref(s, wl, ww),
                                       2 * s.numel() * s.element_size(),
-                                      4 * shape[1] * s.numel(), dtype))
+                                      4 * shape[1] * s.numel(), dtype, kernel_timer=graph_ms))
+                rec["host_paced_ms"] = loop_ms(lambda: talking_heads_softmax(s, wl, ww))
             results[(shape, dtype)] = rec
-            log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}")
+            log(f"[kernel] {shape} {str(dtype).removeprefix('torch.')}: {_fmt(rec)}"
+                ", repeatable bitwise")
+        # cait_s24_384's rows (k = 576), the block-row kernel's: for the record of its next step
+        s, wl, ww = _inputs(LONG_ROW_CASE, torch.bfloat16, seed=len(CASES))
+        h, k = LONG_ROW_CASE[1], LONG_ROW_CASE[3]
+        rec = {"kernel": talking_heads_fwd_kernel_for(h, k, s.dtype),
+               "ms": graph_ms(lambda: talking_heads_softmax(s, wl, ww)),
+               **_bound(2 * s.numel() * s.element_size(), 4 * h * s.numel(), s.dtype)}
+        log(f"[kernel] {LONG_ROW_CASE} bfloat16, timed alone: {_fmt(rec)}")
     return results
 
 
-# backward vs plain backward: ds as the forward's TOL (one rounding of the same
+# backward vs plain backward: ds at TOL (one rounding of the same
 # f32 value to the stored type); dproj_l / dproj_w are f32 sums over n*q*k
 # products taken in another order (a fixed two-stage tree here, cuBLAS in
 # the plain version): 1e-4 of the largest entry
@@ -608,7 +633,7 @@ def _autograd_ms(shape, dtype, seed) -> dict:
         qkv.grad = None
         _sdpa(*qkv.unbind(2), scale).backward(do.transpose(1, 2))
 
-    lib_a, port_a, port_b, lib_b = (_time_ms(f, iters=20) for f in (library, port, port, library))
+    lib_a, port_a, port_b, lib_b = (loop_ms(f, iters=20) for f in (library, port, port, library))
     return {"autograd_ms": (port_a + port_b) / 2, "library_autograd_ms": (lib_a + lib_b) / 2}
 
 
@@ -1194,7 +1219,7 @@ def phase_augment() -> dict:
                                       3 * elems, flops, torch.float32))
                 v2 = _aug_images(shape, seed=850)
                 gen = torch.Generator(device="cuda")
-                rec["byol_device_augment_plain_ms"] = _time_ms(
+                rec["byol_device_augment_plain_ms"] = loop_ms(
                     lambda: byol_device_augment(imgs, v2, gen.manual_seed(0)), iters=10)
             results[(shape, tuple(sorted(kw.items())))] = rec
             log(f"[augment] {shape} {kw}: {_fmt(rec)}, repeatable bitwise")

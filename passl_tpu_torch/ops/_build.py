@@ -104,6 +104,11 @@ def load() -> ctypes.CDLL:
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.passl_talking_heads_fwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.passl_talking_heads_fwd.restype = i32
+    lib.passl_talking_heads_fwd_row_kernel.argtypes = [i32, i32, i32]
+    lib.passl_talking_heads_fwd_row_kernel.restype = i32
+    # dtype, h, k, device, int[5] out
+    lib.passl_talking_heads_fwd_row_resources.argtypes = [i32, i32, i32, i32, vp]
+    lib.passl_talking_heads_fwd_row_resources.restype = i32
     lib.passl_talking_heads_max_k.argtypes = []
     lib.passl_talking_heads_max_k.restype = i32
     lib.passl_talking_heads_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,

@@ -9,10 +9,10 @@ three arguments through one `torch.autograd.Function`, the counterpart of the
 custom VJP in `passl_tpu/ops/pallas/talking_heads.py`: on CUDA tensors its
 forward is one pass of `csrc/talking_heads.cu` and its backward one pass of
 `csrc/talking_heads_bwd.cu`, which recomputes the softmax from s (nothing but
-s and the weights is saved). The backward's C entry point picks one of two
-kernels by shape (`talking_heads_bwd_kernel_for`): the warp-row kernel for
-bf16 / f16 scores with h <= 8 and k <= 256 (CaiT at 224), the block-row
-kernel otherwise. On CPU tensors the same Function runs the plain
+s and the weights is saved). Each C entry point picks one of two kernels by
+shape (`talking_heads_fwd_kernel_for`, `talking_heads_bwd_kernel_for`): the
+warp-row kernel for bf16 / f16 scores with h <= 8 and k <= 256 (CaiT at
+224), the block-row kernel otherwise. On CPU tensors the same Function runs the plain
 versions, `talking_heads_softmax_ref` and `talking_heads_softmax_bwd_ref`,
 the f32 formulas of the two Pallas kernels.
 """
@@ -131,23 +131,44 @@ def talking_heads_softmax_bwd(s: torch.Tensor, dp: torch.Tensor, proj_l: torch.T
 talking_heads_softmax_bwd.launches = 0  # backward kernel launches since the last reset
 
 
+def _kernel_for(which: str, h: int, k: int, dtype: torch.dtype) -> str:
+    takes = getattr(_build.load(), f"passl_talking_heads_{which}_row_kernel")
+    return "warp-row" if takes(h, k, _DTYPE_CODES[dtype]) else "block-row"
+
+
+def _resources(which: str, dtype: torch.dtype, h: int, k: int, device: int) -> dict:
+    out = (ctypes.c_int * 5)()
+    query = getattr(_build.load(), f"passl_talking_heads_{which}_row_resources")
+    rc = query(_DTYPE_CODES[dtype], h, k, device, out)
+    if rc != 0:
+        raise RuntimeError(f"talking_heads_{which}_resources: cudaError {rc} for {dtype} "
+                           f"h={h} k={k}")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm", "spill_bytes", "warps"), out))
+
+
+def talking_heads_fwd_kernel_for(h: int, k: int, dtype: torch.dtype) -> str:
+    """The forward kernel the C entry point launches for [., h, ., k] at
+    `dtype`: "warp-row" or "block-row"."""
+    return _kernel_for("fwd", h, k, dtype)
+
+
 def talking_heads_bwd_kernel_for(h: int, k: int, dtype: torch.dtype) -> str:
     """The backward kernel the C entry point launches for [., h, ., k] at
     `dtype`: "warp-row" or "block-row"."""
-    return "warp-row" if _build.load().passl_talking_heads_bwd_row_kernel(
-        h, k, _DTYPE_CODES[dtype]) else "block-row"
+    return _kernel_for("bwd", h, k, dtype)
+
+
+def talking_heads_fwd_resources(dtype: torch.dtype, h: int, k: int, device: int = 0) -> dict:
+    """What the warp-row forward kernel takes at `dtype`, h and k on the card:
+    registers a thread, shared memory bytes a block, blocks an SM, spilled
+    (local) bytes a thread and warps a block."""
+    return _resources("fwd", dtype, h, k, device)
 
 
 def talking_heads_bwd_resources(dtype: torch.dtype, h: int, k: int, device: int = 0) -> dict:
-    """What the warp-row backward kernel takes at `dtype`, h and k on the card:
-    registers a thread, shared memory bytes a block, blocks an SM, spilled
-    (local) bytes a thread and warps a block."""
-    out = (ctypes.c_int * 5)()
-    rc = _build.load().passl_talking_heads_bwd_row_resources(_DTYPE_CODES[dtype], h, k, device,
-                                                             out)
-    if rc != 0:
-        raise RuntimeError(f"talking_heads_bwd_resources: cudaError {rc} for {dtype} h={h} k={k}")
-    return dict(zip(("registers", "shared_bytes", "blocks_per_sm", "spill_bytes", "warps"), out))
+    """What the warp-row backward kernel takes at `dtype`, h and k on the card,
+    as `talking_heads_fwd_resources` reads the forward's."""
+    return _resources("bwd", dtype, h, k, device)
 
 
 class TalkingHeadsSoftmax(torch.autograd.Function):

@@ -69,6 +69,7 @@ def variant_root(name: str) -> Path:
 def time_kernels() -> dict:
     import torch
     from passl_tpu_torch.ops import attention as A
+    from passl_tpu_torch.utils.cuda_timing import loop_ms
 
     n, l, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -80,18 +81,7 @@ def time_kernels() -> dict:
     fns = {"fwd": lambda: A.flash_attention_fwd(q, k, v, scale),
            "dkv": lambda: A.flash_attention_dkv(q, k, v, do, m, lsum, di, scale),
            "dq": lambda: A.flash_attention_dq(q, k, v, do, m, lsum, di, scale)}
-    out = {}
-    for name, fn in fns.items():
-        for _ in range(5):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(50):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        out[f"{name}_ms"] = start.elapsed_time(end) / 50
-    return out
+    return {f"{name}_ms": loop_ms(fn) for name, fn in fns.items()}
 
 
 def main(argv: list[str]) -> None:

@@ -1,13 +1,15 @@
 """The edits of tests/perf/talking_heads_kernels_cuda.py still find their kernels.
 
-That script times edited copies of the talking-heads backward on the card
-(`nowgrad` skips the warp-row kernel's weight-gradient products, `nomem` its
-streaming past each warp's first row, `block` sends every shape to the
-block-row kernel). Each edit replaces an anchor in
-`passl_tpu_torch/csrc/talking_heads_bwd.cu`; an edit to the kernel that moves
-its anchor would silently leave the kernel whole. These tests read the
-source on the CPU and check that every anchor still lies in the kernel its
-edit names, and nowhere else.
+That script times edited copies of the talking-heads kernels on the card:
+of the backward (`nowgrad` skips the warp-row kernel's weight-gradient
+products, `nomem` its streaming past each warp's first row, `block` sends
+every shape to the block-row kernel) and of the forward (`fwdnomem` has each
+warp of the warp-row kernel load and store only its first row, `fwdblock`
+sends every shape to the block-row kernel). Each edit replaces an anchor in
+`passl_tpu_torch/csrc/talking_heads_bwd.cu` or `talking_heads.cu`; an edit
+to a kernel that moves its anchor would silently leave the kernel whole.
+These tests read the sources on the CPU and check that every anchor still
+lies in the kernel its edit names, and nowhere else.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = REPO / "passl_tpu_torch" / "csrc"
 SCRIPT = REPO / "tests" / "perf" / "talking_heads_kernels_cuda.py"
 KERNELS = {"talking_heads_bwd_kernel", "talking_heads_bwd_row_kernel", "talking_heads_wgrad_reduce"}
+FWD_KERNELS = {"talking_heads_fwd_kernel", "talking_heads_fwd_row_kernel"}
 
 
 def _script():
@@ -68,9 +71,10 @@ def test_every_anchor_lies_in_the_kernel_its_edit_names(name, index):
         assert holders == [None], (name, source, holders)
 
 
-@pytest.mark.parametrize("name, count", [("nowgrad", 2), ("nomem", 1)])
+@pytest.mark.parametrize("name, count", [("nowgrad", 2), ("nomem", 1), ("fwdnomem", 1)])
 def test_each_split_edit_hits_every_call_it_means(name, count):
-    """nowgrad: both products (dww and dwl); nomem: the one staging call."""
+    """nowgrad: both products (dww and dwl); nomem: the one staging call;
+    fwdnomem: the one offset of the next row."""
     source, anchor, _, _ = EDITS[name][0]
     assert (CSRC / source).read_text().count(anchor) == count
 
@@ -78,3 +82,15 @@ def test_each_split_edit_hits_every_call_it_means(name, count):
 def test_kernel_spans_find_the_talking_heads_backward_kernels():
     names = {n for n, _, _ in _kernel_spans((CSRC / "talking_heads_bwd.cu").read_text())}
     assert names == KERNELS
+
+
+def test_kernel_spans_find_the_talking_heads_forward_kernels():
+    names = {n for n, _, _ in _kernel_spans((CSRC / "talking_heads.cu").read_text())}
+    assert names == FWD_KERNELS
+
+
+def test_forward_copies_touch_only_the_forward():
+    """fwdblock and fwdnomem edit talking_heads.cu alone, so the backward in
+    their runs is the checkout's."""
+    for name in ("fwdblock", "fwdnomem"):
+        assert {source for source, *_ in EDITS[name]} == {"talking_heads.cu"}
