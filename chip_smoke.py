@@ -87,20 +87,26 @@ Run from the repo root:  python3 chip_smoke.py
    launches per step, first-step gradients against the einsum path at
    softmax_dtype=float32 (overall and for each of the 12 attn.qkv.weight),
    resume, eval.
-13. Holds the fused augmentation kernel (`fused_augment`, BYOL's device
-   recipe in one pass) against its plain version on the same draws, at BYOL's
-   views [128, 224, 224, 3] with view 1's settings (blur 1.0, solarize 0.0)
-   and view 2's (blur 0.1, solarize 0.2), [256, 32, 32, 3], a non-square
-   [8, 160, 224, 3], [4, 16, 16, 3] at 23 taps (every position an edge) and
-   one channel, with deterministic and random settings: every entry within
-   one bf16 ulp, the share of bitwise equal entries printed, two launches
-   bitwise equal, identical images with other draws different, and at 4,096
-   images the blur and solarize rates within 4 sigma of their
-   probabilities. Its path is its own op (the JAX package calls it from no
-   model): the op's entry point on BYOL's two views is the path whose
-   launches are counted. Times it against its plain version at view 1's
-   settings, and, as context only, the port's plain `byol_device_augment`
-   on two such views.
+13. Holds the fused augmentation kernels (`fused_augment`, BYOL's device
+   recipe in one pass; the fast kernel for its compiled radii and channel
+   counts, the generic kernel for the rest) against their plain version on
+   the same draws, at BYOL's views [128, 224, 224, 3] with view 1's settings
+   (blur 1.0, solarize 0.0) and view 2's (blur 0.1, solarize 0.2),
+   [256, 32, 32, 3], a non-square [8, 160, 224, 3], [4, 16, 16, 3] at 23
+   taps (every position an edge), one channel, taps 1, 3, 4 and 25, an image
+   lower than the radius with an odd row width, a misaligned contiguous view,
+   one channel at a compiled radius, two channels (generic) and the widest
+   row the generic kernel takes, with deterministic and random settings:
+   every entry within one bf16 ulp, the share of bitwise equal entries and
+   the kernel printed, two launches bitwise equal, identical images with
+   other draws different, and at 4,096 images the blur and solarize rates
+   within 4 sigma of their probabilities. Logs the fast kernel's registers,
+   shared memory, blocks an SM and spills at BYOL's shape. Its path is its
+   own op (the JAX package calls it from no model): the op's entry point on
+   BYOL's two views is the path whose launches are counted. Times it at
+   both views from a replayed CUDA graph (the loop's reading beside it)
+   against its plain version, and, as context only, the port's plain
+   `byol_device_augment` on two such views.
 14. Trains BYOL ResNet-50 at 224, full width and depth, through
    `Engine(config, mode="train", device="cuda").train()` on
    configs/byol/byol_r50_in1k.yaml with synthetic images in place of
@@ -142,7 +148,9 @@ from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
 from passl_tpu_torch.ops.augment import byol_device_augment
 from passl_tpu_torch.ops.augment_kernel import (fused_augment, fused_augment_draws,
-                                                fused_augment_ref, fused_augment_with_draws)
+                                                fused_augment_kernel_for, fused_augment_ref,
+                                                fused_augment_resources,
+                                                fused_augment_with_draws)
 from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_attention_dkv, flash_attention_dkv_ref,
                                            flash_attention_dq, flash_attention_dq_ref,
@@ -1140,6 +1148,21 @@ AUG_CASES = [
     ((16, 64, 48, 1), dict(blur_prob=1.0, solarize_prob=1.0, sigma_range=(0.1, 2.0),
                            mean=(0.45,), std=(0.226,))),
     ((64, 224, 224, 3), dict(blur_prob=0.0, solarize_prob=0.0)),
+    # the fast kernel's other radii: taps 1, 3 (W C = 36: 4-byte staging), 4 and 25
+    ((16, 40, 36, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=1)),
+    ((16, 37, 12, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=3)),
+    ((16, 48, 40, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=4)),
+    ((16, 50, 44, 3), dict(blur_prob=1.0, solarize_prob=1.0, taps=25)),
+    # an image lower than the radius, W C = 39 odd (byte staging, 2-byte stores)
+    ((16, 5, 13, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=23)),
+    # a misaligned contiguous view (`offset` bytes into a buffer): byte staging and streaming
+    ((32, 33, 40, 3), dict(blur_prob=0.5, solarize_prob=0.5, offset=1)),
+    # one channel at a compiled radius; two channels, which the generic kernel takes
+    ((16, 40, 36, 1), dict(blur_prob=1.0, solarize_prob=0.5, taps=23, mean=(0.45,),
+                           std=(0.226,))),
+    ((16, 24, 20, 2), dict(blur_prob=0.5, solarize_prob=0.5, mean=(0.5, 0.4), std=(0.2, 0.25))),
+    # the widest row the generic kernel takes at 23 taps (W C = 7,224, one row a block)
+    ((4, 8, 2408, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=23)),
 ]
 
 
@@ -1153,9 +1176,17 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.exp2(e - 7), min=1e-5)
 
 
-def _aug_images(shape, seed) -> torch.Tensor:
+def _aug_images(shape, seed, offset: int = 0) -> torch.Tensor:
+    """uint8 images from `seed`; with `offset`, a contiguous view that starts
+    `offset` bytes into a buffer."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+    imgs = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+    if offset:
+        buf = torch.zeros(imgs.numel() + offset, dtype=torch.uint8, device="cuda")
+        imgs = buf[offset:offset + imgs.numel()].view(shape).copy_(imgs)
+        check(imgs.is_contiguous() and imgs.data_ptr() % 16 == offset % 16,
+              f"augment: the view at offset {offset} is not misaligned")
+    return imgs
 
 
 def _aug_rates(seed: int) -> dict:
@@ -1189,7 +1220,9 @@ def phase_augment() -> dict:
     results = {}
     with torch.inference_mode():
         for i, (shape, kw) in enumerate(AUG_CASES):
-            imgs = _aug_images(shape, seed=800 + i)
+            kw = dict(kw)
+            offset = kw.pop("offset", 0)
+            imgs = _aug_images(shape, seed=800 + i, offset=offset)
             u = fused_augment_draws(shape[0], 900 + i, imgs.device)
             got = fused_augment_with_draws(imgs, u, **kw)
             want = fused_augment_ref(imgs, u, **kw)
@@ -1200,7 +1233,8 @@ def phase_augment() -> dict:
             diff = (g - w).abs()
             over = diff > _bf16_ulp(torch.maximum(g.abs(), w.abs()))
             beyond = int(over.sum())
-            rec = {"max_abs_err": diff.max().item(), "bitwise_equal_share":
+            rec = {"kernel": fused_augment_kernel_for(*shape[1:], kw.get("taps", 23)),
+                   "max_abs_err": diff.max().item(), "bitwise_equal_share":
                    (got.view(torch.int16) == want.view(torch.int16)).float().mean().item(),
                    "blurred": int((u[:, 1] < kw["blur_prob"]).sum()),
                    "solarized": int((u[:, 2] < kw["solarize_prob"]).sum())}
@@ -1209,20 +1243,28 @@ def phase_augment() -> dict:
                                f"{list(zip(g[over][:5].tolist(), w[over][:5].tolist()))}")
             check(torch.equal(got, fused_augment_with_draws(imgs, u, **kw)),
                   f"augment at {shape}: two launches differ")
-            if shape == AUG_BYOL and kw == AUG_VIEW1:
+            if shape == AUG_BYOL:
+                check(rec["kernel"] == "fast", f"augment at {shape}: the {rec['kernel']} kernel")
                 # read u8 once, write bf16 once; each blurred image's taps are
-                # 2 passes x 2 flops x taps per element (view 1: every image)
+                # 2 passes x 2 flops x taps per element (view 1: every image;
+                # view 2: its blurred images only). The kernel's turns replay a
+                # CUDA graph: the wrapper's host time would pace a launch this
+                # short; `host_paced_ms` is the plain loop's reading
                 elems = imgs.numel()
                 flops = 4 * 23 * (elems // shape[0]) * rec["blurred"]
                 rec.update(_time_pair(lambda: fused_augment_with_draws(imgs, u, **kw),
                                       lambda: fused_augment_ref(imgs, u, **kw),
-                                      3 * elems, flops, torch.float32))
-                v2 = _aug_images(shape, seed=850)
-                gen = torch.Generator(device="cuda")
-                rec["byol_device_augment_plain_ms"] = loop_ms(
-                    lambda: byol_device_augment(imgs, v2, gen.manual_seed(0)), iters=10)
+                                      3 * elems, flops, torch.float32, kernel_timer=graph_ms))
+                rec["host_paced_ms"] = loop_ms(lambda: fused_augment_with_draws(imgs, u, **kw))
+                if kw == AUG_VIEW1:
+                    rec["resources"] = fused_augment_resources(*shape[1:], 23)
+                    v2 = _aug_images(shape, seed=850)
+                    gen = torch.Generator(device="cuda")
+                    rec["byol_device_augment_plain_ms"] = loop_ms(
+                        lambda: byol_device_augment(imgs, v2, gen.manual_seed(0)), iters=10)
             results[(shape, tuple(sorted(kw.items())))] = rec
-            log(f"[augment] {shape} {kw}: {_fmt(rec)}, repeatable bitwise")
+            log(f"[augment] {shape} {kw}{f' at offset {offset}' if offset else ''}: "
+                f"{_fmt(rec)}, repeatable bitwise")
             del imgs, u, got, want, g, w, diff
         # per-image draws: identical images with other draws come out different
         same = _aug_images((1, 64, 64, 3), seed=860).expand(8, -1, -1, -1).contiguous()

@@ -144,6 +144,10 @@ def load() -> ctypes.CDLL:
     # device, stream
     lib.passl_fused_augment.argtypes = [vp] * 4 + [i32] * 5 + [f32] * 5 + [i32, vp]
     lib.passl_fused_augment.restype = i32
-    lib.passl_fused_augment_band.argtypes = [i32] * 4
-    lib.passl_fused_augment_band.restype = i32
+    # H, W, C, taps -> 2 the fast kernel, 1 the generic kernel, 0 none
+    lib.passl_fused_augment_path.argtypes = [i32] * 4
+    lib.passl_fused_augment_path.restype = i32
+    # H, W, C, taps, device, int[5] out
+    lib.passl_fused_augment_resources.argtypes = [i32] * 5 + [vp]
+    lib.passl_fused_augment_resources.restype = i32
     return lib

@@ -23,9 +23,19 @@ On a CUDA tensor `fused_augment_with_draws` launches `csrc/augment.cu` once
 (or raises); on a CPU tensor it runs `fused_augment_ref`. Forward only, as
 in JAX. The JAX package calls this op from no model (BYOL runs the plain
 `ops/augment.py`), and so does the port.
+
+`csrc/augment.cu` has two kernels, and its C entry point picks one by shape
+(`fused_augment_kernel_for`): the fast kernel, compiled for taps // 2 in
+{0, 1, 2, 4, 11, 12} and C in {1, 3} where a band of 16 rows fits in shared
+memory, and the generic kernel (the first design, runtime tap loops) for
+every other shape. The per-channel constants live on the card once per
+(device, mean, std), so a launch makes no host-to-device copy and the op can
+be captured in a CUDA graph once it has run eagerly for those constants.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -64,6 +74,32 @@ def fused_augment_ref(images: torch.Tensor, draws: torch.Tensor, *, blur_prob: f
     return ((x - mean_t) * inv_std).to(torch.bfloat16)
 
 
+@functools.lru_cache(maxsize=None)
+def _chan(device: torch.device, mean: Tuple[float, ...], std: Tuple[float, ...]) -> torch.Tensor:
+    """[2, C] f32 on `device`: mean, 1 / std; made once per (device, mean, std)."""
+    return torch.tensor([*mean, *(1.0 / s for s in std)], dtype=torch.float32, device=device)
+
+
+def fused_augment_kernel_for(h: int, w: int, c: int, taps: int) -> str:
+    """Which kernel of `csrc/augment.cu` takes [*, h, w, c] at `taps` taps:
+    "fast", "generic", or "none" (a row too wide for shared memory)."""
+    return ("none", "generic", "fast")[_build.load().passl_fused_augment_path(h, w, c, taps)]
+
+
+def fused_augment_resources(h: int, w: int, c: int, taps: int, device: int = 0) -> dict:
+    """Registers a thread, dynamic shared memory a block, blocks an SM,
+    spilled bytes a thread and threads a block of the kernel that takes the
+    shape (`fused_augment_kernel_for`)."""
+    out = (ctypes.c_int * 5)()
+    rc = _build.load().passl_fused_augment_resources(h, w, c, taps, device, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"fused_augment_resources: cudaError {rc} for [{h}, {w}, {c}] at "
+                           f"{taps} taps")
+    return {"kernel": fused_augment_kernel_for(h, w, c, taps), "registers": out[0],
+            "shared_bytes": out[1], "blocks_per_sm": out[2], "spill_bytes": out[3],
+            "threads": out[4]}
+
+
 def _launch(images: torch.Tensor, draws: torch.Tensor, blur_prob: float, solarize_prob: float,
             taps: int, sigma_range: Tuple[float, float], solarize_threshold: float,
             mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
@@ -80,12 +116,11 @@ def _launch(images: torch.Tensor, draws: torch.Tensor, blur_prob: float, solariz
     if taps < 1:
         raise ValueError(f"{name}: taps must be >= 1, got {taps}")
     lib = _build.load()
-    if lib.passl_fused_augment_band(h, w, c, taps) == 0:
+    if lib.passl_fused_augment_path(h, w, c, taps) == 0:
         raise ValueError(f"{name}: a row of {w} x {c} with a {taps}-tap halo does not fit in "
                          "shared memory")
     u = draws.detach().to(torch.float32).contiguous()
-    chan = torch.tensor([*mean, *(1.0 / s for s in std)], dtype=torch.float32,
-                        device=images.device)
+    chan = _chan(images.device, tuple(mean), tuple(std))
     out = torch.empty(images.shape, dtype=torch.bfloat16, device=images.device)
     lo, hi = sigma_range
     rc = lib.passl_fused_augment(images.data_ptr(), u.data_ptr(), chan.data_ptr(), out.data_ptr(),

@@ -4,14 +4,18 @@ fused op `ops/augment_kernel.py`.
 On the CPU: the plain twin `fused_augment_ref` against the JAX package's
 `fused_augment` with its Pallas kernel in interpret mode, at settings where
 the draws decide nothing (every blur and solarize coin at 0 or 1, one sigma),
-taps 5, 9 and 23, images smaller than the taps (every position an edge) and
-one channel; the port's `gaussian_blur` against JAX's with per-sample sigmas;
-the core of `byol_device_augment` on the draws JAX made against JAX's
-`byol_device_augment`; and the op's per-sample randomness and coin rates,
-which the plain version reproduces on the CPU. Tests marked `cuda` hold the
-kernel against its plain version on the card and skip elsewhere; they import
-no JAX, so `python -m pytest --noconftest -m cuda <this file>` runs them on a
-machine without it.
+taps 5, 9 and 23, images smaller than the taps (every position an edge),
+one channel, and the radii where the card's fast kernel branches (taps 1,
+3, 4 and 25) on rows of odd width; the port's `gaussian_blur` against JAX's
+with per-sample sigmas; the core of `byol_device_augment` on the draws JAX
+made against JAX's `byol_device_augment`; and the op's per-sample randomness
+and coin rates, which the plain version reproduces on the CPU. Tests marked
+`cuda` hold the kernels against their plain version on the card (each
+case's kernel, fast or generic, named; aligned, 4-byte and misaligned rows;
+the widest row the generic kernel takes), replay the op from a CUDA graph,
+and skip elsewhere; they import no JAX, so
+`python -m pytest --noconftest -m cuda <this file>` runs them on a machine
+without it.
 """
 import numpy as np
 import pytest
@@ -19,7 +23,8 @@ import torch
 
 from passl_tpu_torch.ops import augment as paug
 from passl_tpu_torch.ops.augment_kernel import (fused_augment, fused_augment_draws,
-                                                fused_augment_ref, fused_augment_with_draws)
+                                                fused_augment_kernel_for, fused_augment_ref,
+                                                fused_augment_with_draws)
 
 # f32 plain ops against the JAX ops: the same f32 products summed in another order
 F32_TOL = 1e-5
@@ -96,6 +101,23 @@ def test_ref_matches_the_pallas_kernel_one_channel(blur_prob, solarize_prob):
     want = _jax_fused(imgs, 7, **kw)
     got = fused_augment_ref(torch.from_numpy(imgs), torch.rand(2, 3), **kw).float().numpy()
     _assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("taps", [1, 3, 4, 25])
+@pytest.mark.parametrize("shape", [(2, 9, 7, 3), (2, 6, 11, 1)])
+def test_ref_matches_the_pallas_kernel_at_the_fast_kernels_radii(shape, taps):
+    """The radii where the card's fast kernel branches (taps 1 and 3; 4,
+    whose radius 2 is that of taps 5; 25), on non-square images whose row
+    width W C is odd (21 and 11), with blur and solarize on: the plain twin
+    the card holds the kernel against is pinned to the Pallas kernel there."""
+    imgs = _images(shape, seed=40 + taps)
+    kw = dict(blur_prob=1.0, solarize_prob=1.0, taps=taps, sigma_range=(1.5, 1.5))
+    if shape[-1] == 1:
+        kw.update(mean=MEAN1, std=STD1)
+    want = _jax_fused(imgs, 9, **kw)
+    got = fused_augment_ref(torch.from_numpy(imgs), torch.rand(2, 3), **kw)
+    assert got.shape == shape
+    _assert_within_one_ulp(got.float().numpy(), want)
 
 
 def test_gaussian_blur_matches_jax_per_sample_sigmas():
@@ -239,6 +261,8 @@ def cuda():
     return torch.device("cuda")
 
 
+# (shape, settings); `offset` (popped before the call) reads the images as a
+# contiguous view that starts `offset` bytes into a uint8 buffer
 CARD_CASES = [
     ((8, 224, 224, 3), dict(blur_prob=1.0, solarize_prob=0.0)),
     ((8, 224, 224, 3), dict(blur_prob=0.1, solarize_prob=0.2)),
@@ -246,13 +270,43 @@ CARD_CASES = [
     ((4, 160, 224, 3), dict(blur_prob=1.0, solarize_prob=1.0)),
     ((4, 16, 16, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=23, sigma_range=(2.0, 2.0))),
     ((4, 17, 33, 1), dict(blur_prob=1.0, solarize_prob=1.0, mean=MEAN1, std=STD1)),
+    # the fast kernel's other radii: taps 1, 3 (W C = 36: 4-byte staging), 4 and 25
+    ((4, 40, 36, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=1)),
+    ((4, 37, 12, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=3)),
+    ((4, 48, 40, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=4)),
+    ((4, 50, 44, 3), dict(blur_prob=1.0, solarize_prob=1.0, taps=25)),
+    # an image lower than the radius, W C = 39 odd (byte staging, 2-byte stores)
+    ((4, 5, 13, 3), dict(blur_prob=1.0, solarize_prob=0.5, taps=23)),
+    # a misaligned contiguous view: byte staging, byte streaming
+    ((8, 33, 40, 3), dict(blur_prob=0.5, solarize_prob=0.5, offset=1)),
+    # one channel at compiled radii (taps 23 and 9); two channels, which the generic kernel takes
+    ((4, 40, 36, 1), dict(blur_prob=1.0, solarize_prob=0.5, taps=23, mean=MEAN1, std=STD1)),
+    ((4, 30, 26, 1), dict(blur_prob=1.0, solarize_prob=0.5, taps=9, mean=MEAN1, std=STD1)),
+    ((4, 24, 20, 2), dict(blur_prob=0.5, solarize_prob=0.5, mean=(0.5, 0.4), std=(0.2, 0.25))),
+    # the widest row the generic kernel takes at 23 taps (W C = 7,224, one row a block)
+    ((2, 8, 2408, 3), dict(blur_prob=1.0, solarize_prob=0.0, taps=23)),
 ]
+FAST_RADII = {0, 1, 2, 4, 11, 12}  # taps // 2 of the fast kernel's compiled instances
+
+
+def _card_images(shape, offset: int, device) -> torch.Tensor:
+    imgs = torch.from_numpy(_images(shape, seed=40)).to(device)
+    if offset:
+        buf = torch.zeros(imgs.numel() + offset, dtype=torch.uint8, device=device)
+        imgs = buf[offset:offset + imgs.numel()].view(shape).copy_(imgs)
+        assert imgs.is_contiguous() and imgs.data_ptr() % 16 == offset % 16
+    return imgs
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, kw", CARD_CASES)
 def test_kernel_matches_plain_version(cuda, shape, kw):
-    imgs = torch.from_numpy(_images(shape, seed=40)).to(cuda)
+    kw = dict(kw)
+    imgs = _card_images(shape, kw.pop("offset", 0), cuda)
+    _, h, w, c = shape
+    taps = kw.get("taps", 23)
+    fast = taps // 2 in FAST_RADII and c in (1, 3) and w * c < 4096
+    assert fused_augment_kernel_for(h, w, c, taps) == ("fast" if fast else "generic")
     u = fused_augment_draws(shape[0], 3, cuda)
     before = fused_augment.launches
     got = fused_augment_with_draws(imgs, u, **kw)
@@ -262,3 +316,30 @@ def test_kernel_matches_plain_version(cuda, shape, kw):
     assert got.dtype == torch.bfloat16 and got.shape == imgs.shape
     _assert_within_one_ulp(got.float().cpu().numpy(), want.float().cpu().numpy())
     assert torch.equal(got, fused_augment_with_draws(imgs, u, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 64, 48, 3), (8, 5, 13, 3)])
+def test_kernel_replays_from_a_cuda_graph(cuda, shape):
+    """Captured in a CUDA graph after one eager call, the op replays to the
+    eager result bitwise, and to the new result after its input changes in place."""
+    kw = dict(blur_prob=0.5, solarize_prob=0.5)
+    imgs = torch.from_numpy(_images(shape, seed=41)).to(cuda)
+    u = fused_augment_draws(shape[0], 4, cuda)
+    eager = fused_augment_with_draws(imgs, u, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_augment_with_draws(imgs, u, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_augment_with_draws(imgs, u, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    imgs.copy_(torch.from_numpy(_images(shape, seed=42)).to(cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fused_augment_with_draws(imgs, u, **kw))
+    assert not torch.equal(out, eager)
