@@ -119,8 +119,27 @@ Run from the repo root:  python3 chip_smoke.py
    against the same step on the CPU from the same init and batch, in f32 and
    in f64 (4 pairs, no device augmentation), beside f32 against f64 on the
    CPU as the yardstick of f32's rounding. Prints step time, pairs/s and
-   views/s, reader share, peak memory and a torch.profiler view of one step.
-15. Prints the card line, a JSON line of the eight kernels' results, and
+   views/s, reader share, peak memory, and device busy, idle share and top
+   kernels of one profiled step.
+15. Trains SimCLR ResNet-50 the same way on configs/simclr/simclr_r50_in1k.yaml:
+   128 pairs, bf16, use_device_augment at jitter strength 1.0, MomentumLARS
+   and simclrCosineWarmup, 8 steps. Checks: every loss finite and every acc1
+   in [0, 1]; the BatchNorm statistics of the backbone and the neck moved;
+   resume; the first step card vs CPU (4 pairs, no device augmentation) in
+   f32 and f64 with BYOL's limits; and the plain `simclr_device_augment_core`
+   on the card against the CPU on the same draws at [128, 224, 224, 3]
+   within 1e-5 of the views' largest magnitude.
+16. Trains MoCo v2 ResNet-50 the same way on configs/moco/mocov2_r50_in1k.yaml:
+   the config's batch of 256 in 8 BatchNorm splits, K = 65,536, Momentum
+   SGD, bf16, 8 steps. Checks: after every step each encoder_k parameter is
+   0.999 k + 0.001 q in f32, queue_ptr is 256 t mod 65,536, the 256 keys
+   written are unit-norm and every column not yet written holds its init
+   bitwise; encoder_k has no optimizer state; both encoders' BatchNorm
+   statistics moved; every loss finite and every acc1 in [0, 1]; the resumed
+   engine starts from the checkpoint's queue and pointer bitwise; the first
+   step card vs CPU at 16 images (2 a split) with one permutation handed to
+   both devices, in f32 and f64.
+17. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -128,6 +147,7 @@ then. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -146,7 +166,10 @@ from passl_tpu_torch.data.loader import PREFETCH_THREAD
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
-from passl_tpu_torch.ops.augment import byol_device_augment
+from passl_tpu_torch.models import moco
+from passl_tpu_torch.nn.norm import SplitBatchNorm
+from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
+                                         simclr_draws)
 from passl_tpu_torch.ops.augment_kernel import (fused_augment, fused_augment_draws,
                                                 fused_augment_kernel_for, fused_augment_ref,
                                                 fused_augment_resources,
@@ -1289,17 +1312,41 @@ def phase_augment() -> dict:
     return {"cases": results, "launches": launches}
 
 
-# ----------------------------------------------------------- BYOL ResNet-50
-
-BYOL_CONFIG = os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml")
-BYOL_BATCH = 128  # per view: the recipe's 4,096 over 32 cards
-BYOL_GRAD_PAIRS = 4  # the f32 card-vs-CPU first step
+# ------------------------------------------------- SSL ResNet-50: BYOL, SimCLR, MoCo v2
 
 
-def _byol_config(out_dir: str, batch: int, *overrides: str, workers: int = WORKERS):
+@dataclasses.dataclass(frozen=True)
+class SSLSpec:
+    """An SSL recipe's training phase: its config, per-card batch (pairs),
+    the first step's size and overrides for the card-vs-CPU gradients, the
+    momentum tower that takes no gradient (if any), and the backbone whose
+    stem and layer4 convolutions the gradient check names."""
+    tag: str
+    config: str
+    batch: int
+    grad_batch: int
+    grad_overrides: tuple
+    backbone: str
+    no_grad: Optional[str] = None
+
+
+BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
+                    128,  # per view: the recipe's 4,096 over 32 cards
+                    4, ("Model.use_device_augment=False",), "online.backbone.", "target.")
+SIMCLR_SPEC = SSLSpec("SimCLR-R50", os.path.join(REPO, "configs", "simclr",
+                                                 "simclr_r50_in1k.yaml"),
+                      128,  # pairs: the recipe's 4,096 over 32 cards
+                      4, ("Model.use_device_augment=False",), "backbone.")
+MOCO_SPEC = SSLSpec("MoCoV2-R50", os.path.join(REPO, "configs", "moco", "mocov2_r50_in1k.yaml"),
+                    256,  # the config's own batch, in 8 BatchNorm splits
+                    16, (), "encoder_q.backbone.", "encoder_k.")  # 2 images a split
+
+
+def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
+                workers: int = WORKERS):
     """The in1k config with synthetic images in place of ImageNet (the
     config's own two-view transforms stay), `batch` pairs, TRAIN_STEPS steps."""
-    config = cfg_util.get_config(BYOL_CONFIG, overrides=[
+    config = cfg_util.get_config(spec.config, overrides=[
         f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
         "Global.print_batch_step=1", *overrides])
     dl = config["DataLoader"]["Train"]
@@ -1310,14 +1357,23 @@ def _byol_config(out_dir: str, batch: int, *overrides: str, workers: int = WORKE
     return config
 
 
-def _byol_first_batch(engine: Engine, device: str):
+def _ssl_first_batch(engine: Engine, device: str):
+    """Epoch 1's first batch of views; uint8 where the model augments on the
+    device or takes raw crops (BYOL, SimCLR), f32 where the host normalizes (MoCo)."""
     dl = dict(engine.config["DataLoader"]["Train"], loader={"num_workers": 0, "prefetch": 0})
     loader = build_dataloader(dl, "Train", seed=engine.seed)
     loader.set_epoch(1)
     batch = engine.prepare_batch(next(iter(loader)))
-    check(all(np.asarray(v).dtype == np.uint8 for v in batch),
-          f"BYOL views reach the device as {[np.asarray(v).dtype for v in batch]}, want uint8")
+    dtypes = {np.asarray(v).dtype for v in batch}
+    host_normalized = any("NormalizeImage" in t for t in _transform_names(dl))
+    check(dtypes == {np.dtype(np.float32 if host_normalized else np.uint8)},
+          f"views reach the device as {dtypes}")
     return to_device(batch, torch.device(device))
+
+
+def _transform_names(dl: dict) -> list:
+    two_views = dl["dataset"]["transform"][-1]["TwoViewsTransform"]
+    return [next(iter(t)) for t in two_views["base_transform1"]]
 
 
 def _to_f64(model: torch.nn.Module) -> None:
@@ -1329,22 +1385,22 @@ def _to_f64(model: torch.nn.Module) -> None:
             m.compute_dtype = torch.float64
 
 
-def _byol_first_step(tmp: str, device: str, f64: bool) -> tuple[float, dict]:
-    e = Engine(_byol_config(os.path.join(tmp, f"grads_{device}_{f64}"), BYOL_GRAD_PAIRS,
-                            "FP16.enable=False", "Model.use_device_augment=False"),
+def _ssl_first_step(spec: SSLSpec, tmp: str, device: str, f64: bool) -> tuple[float, dict]:
+    e = Engine(_ssl_config(spec, os.path.join(tmp, f"grads_{device}_{f64}"), spec.grad_batch,
+                           "FP16.enable=False", *spec.grad_overrides),
                mode="train", device=device)
     if f64:
         _to_f64(e.model)
-    loss = float(e.train_step.forward_backward(e.state, _byol_first_batch(e, device))["loss"])
+    loss = float(e.train_step.forward_backward(e.state, _ssl_first_batch(e, device))["loss"])
     grads = {n: p.grad.detach().double().cpu().clone() for n, p in e.model.named_parameters()
-             if not n.startswith("target.")}  # the target gets no gradient
+             if not (spec.no_grad and n.startswith(spec.no_grad))}  # the EMA tower takes none
     e.close()
     del e
     torch.cuda.empty_cache()
     return loss, grads
 
 
-def _grad_agreement(tag: str, a: tuple, b: tuple) -> dict:
+def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
     """Loss and gradient cosines of two first steps (loss, grads): overall and
     the lowest of the stem's and layer4's conv weights."""
     (l_a, g_a), (l_b, g_b) = a, b
@@ -1352,46 +1408,46 @@ def _grad_agreement(tag: str, a: tuple, b: tuple) -> dict:
     cos_all = _cos(torch.cat([g_a[n].flatten() for n in names]),
                    torch.cat([g_b[n].flatten() for n in names]))
     convs = [n for n in names if g_a[n].dim() == 4 and (
-        n == "online.backbone.conv1.weight" or n.startswith("online.backbone.layer4."))]
-    check(len(convs) == 11, f"BYOL-R50: {len(convs)} stem/layer4 convs, want 11")
+        n == f"{spec.backbone}conv1.weight" or n.startswith(f"{spec.backbone}layer4."))]
+    check(len(convs) == 11, f"{spec.tag}: {len(convs)} stem/layer4 convs, want 11")
     cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in convs}
     worst = min(cos_conv, key=cos_conv.get)
     rel = abs(l_a - l_b) / abs(l_b)
-    log(f"[train] BYOL-R50 first step, {tag} ({BYOL_GRAD_PAIRS} pairs): loss {l_a:.9f} vs "
+    log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} pairs): loss {l_a:.9f} vs "
         f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
         f"{len(convs)} stem/layer4 convs {cos_conv[worst]:.9f} ({worst})")
     return {"loss_rel": rel, "grad_cos": cos_all, "grad_cos_min_conv": cos_conv[worst]}
 
 
-def _byol_grads_card_vs_cpu(tmp: str) -> dict:
+def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     """The first step's loss and gradients on the card against the same step
     on the CPU, from the same init and batch, in f32 (TF32 off) and in f64;
     and, as the yardstick of f32 rounding, f32 against f64 on the CPU."""
-    runs = {(d, f64): _byol_first_step(tmp, d, f64) for f64 in (False, True)
+    runs = {(d, f64): _ssl_first_step(spec, tmp, d, f64) for f64 in (False, True)
             for d in ("cuda", "cpu")}
-    f32 = _grad_agreement("f32, card vs CPU", runs["cuda", False], runs["cpu", False])
-    f64 = _grad_agreement("f64, card vs CPU", runs["cuda", True], runs["cpu", True])
-    ref = _grad_agreement("CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
+    f32 = _grad_agreement(spec, "f32, card vs CPU", runs["cuda", False], runs["cpu", False])
+    f64 = _grad_agreement(spec, "f64, card vs CPU", runs["cuda", True], runs["cpu", True])
+    ref = _grad_agreement(spec, "CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
     # at ResNet-50's random init the gradient of a weight that feeds a
     # BatchNorm is a small remainder of large sums, which f32 resolves only to
     # the yardstick's cosine: in f32 the card and the CPU must agree at least
     # as well, and to 1e-3; f64 resolves it, and there they must agree to 1e-6
     for rec, tol in ((f32, 1e-3), (f64, 1e-6)):
         check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
-              f"BYOL-R50 card vs CPU first step: {rec}")
+              f"{spec.tag} card vs CPU first step: {rec}")
     check(f32["grad_cos"] >= ref["grad_cos"],
-          f"BYOL-R50 f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
+          f"{spec.tag} f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
     return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref))
             for k, v in rec.items()}
 
 
 class _EmaCheck:
     """Wraps the engine's train step: after every step each target parameter
-    must be m(t) target_prev + (1 - m(t)) online_new in f32, m(t) the cosine
+    must be m(t) target_prev + (1 - m(t)) online_new in f32, m(t) the momentum
     schedule at the step before the increment."""
 
-    def __init__(self, engine: Engine):
-        self.engine, self.step_fn = engine, engine.train_step
+    def __init__(self, tag: str, engine: Engine):
+        self.tag, self.engine, self.step_fn = tag, engine, engine.train_step
         (self.src, self.dst, self.m_fn), = self.step_fn.ema_pairs
         self.worst = 0.0
 
@@ -1405,73 +1461,256 @@ class _EmaCheck:
                 err = ((d - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
                 self.worst = max(self.worst, err)
         # the same two f32 roundings in another kernel (foreach against per tensor)
-        check(self.worst <= 1e-6, f"BYOL-R50 EMA rule broken at step {state.step}: {self.worst}")
+        check(self.worst <= 1e-6, f"{self.tag} EMA rule broken at step {state.step}: {self.worst}")
         return metrics
 
     def __getattr__(self, name):
         return getattr(self.step_fn, name)
 
 
+def _ssl_report(spec: SSLSpec, engine: Engine, batch, loss_range=(0.0, float("inf"))) -> dict:
+    """The main path's losses (and acc1, where the method reports it) over
+    TRAIN_STEPS steps, step time, pairs/s and views/s, reader share, peak
+    memory, and device busy and idle share of one more profiled step."""
+    hist = engine.train_loop.history
+    losses = [h["loss"] for h in hist]
+    lo, hi = loss_range
+    check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses))
+          and all(lo <= v <= hi for v in losses), f"{spec.tag} losses {losses}")
+    accs = [h["acc1"] for h in hist if "acc1" in h]
+    check(all(0.0 <= a <= 1.0 for a in accs), f"{spec.tag} acc1 {accs}")
+    steady = hist[1:]  # the first step pays for cuDNN's and the allocator's warm-up
+    step_s = float(np.median([h["batch_cost"] for h in steady]))
+    reader = float(np.median([h["reader_cost"] for h in steady]))
+    rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": step_s,
+           "pairs_per_s": spec.batch / step_s, "views_per_s": 2 * spec.batch / step_s,
+           "reader_s_median": reader, "reader_share": reader / step_s,
+           "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[train] {spec.tag} bf16: losses " + ", ".join(f"{v:.5f}" for v in losses)
+        + (("; acc1 " + ", ".join(f"{a:.4f}" for a in accs)) if accs else "") + "; " + _fmt(rep))
+    prof: dict = {}
+    log(f"[profile] {spec.tag} train step, bf16: "
+        f"{_profile(lambda: float(engine.train_step(engine.state, batch)['loss']), prof)}")
+    rep.update(busy_ms=prof["busy_ms"], idle_share=1 - prof["busy_ms"] / prof["wall_ms"])
+    return rep
+
+
+def _ssl_resume(spec: SSLSpec, tmp: str, ckpt: str, on_first_step=None) -> None:
+    """One more step from the checkpoint (`on_first_step(engine)` runs on the
+    restored state before it), as tools/train resumes."""
+    e_r = Engine(_ssl_config(spec, os.path.join(tmp, "resume"), spec.batch,
+                             f"Global.checkpoint={ckpt}",
+                             f"Global.max_train_step={TRAIN_STEPS + 1}", workers=0),
+                 mode="train", device="cuda")
+    if on_first_step is not None:
+        step_fn = e_r.train_step
+
+        def first(state, batch):
+            on_first_step(e_r)
+            e_r.train_step = step_fn
+            return step_fn(state, batch)
+
+        e_r.train_step = first
+    e_r.train()
+    hist = e_r.train_loop.history
+    check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1
+          and np.isfinite(hist[0]["loss"]), f"{spec.tag} resume: history {hist}")
+    log(f"[train] {spec.tag} resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
+        f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
+    del e_r
+    torch.cuda.empty_cache()
+
+
+def _stats_moved(spec: SSLSpec, engine: Engine, stats0: dict, prefixes) -> None:
+    moved = {p: all(not torch.equal(v, stats0[k]) for k, v in engine.model.state_dict().items()
+                    if k.startswith(p) and "running" in k) for p in prefixes}
+    check(all(moved.values()), f"{spec.tag}: BatchNorm statistics moved {moved}")
+
+
+def _no_optimizer_state_on(spec: SSLSpec, engine: Engine) -> None:
+    stateful = {id(p) for p in engine.optimizer.torch_optimizer.state}
+    named = list(engine.model.named_parameters())
+    check(all((id(p) in stateful) != n.startswith(spec.no_grad) for n, p in named),
+          f"{spec.tag}: {spec.no_grad} has optimizer state, or the online tower lacks it")
+
+
 def phase_train_byol() -> dict:
+    spec = BYOL_SPEC
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out.update(_byol_grads_card_vs_cpu(tmp))
-        cfg = _byol_config(os.path.join(tmp, "bf16"), BYOL_BATCH)
-        e = Engine(cfg, mode="train", device="cuda")
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
         check(e.policy.compute_dtype == torch.bfloat16 and e.model.use_device_augment
               and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS",
               "BYOL-R50: not the recipe's bf16 / device augment / LARS")
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
-        batch = _byol_first_batch(e, "cuda")
-        ema = _EmaCheck(e)
+        batch = _ssl_first_batch(e, "cuda")
+        ema = _EmaCheck(spec.tag, e)
         e.train_step = ema
         torch.cuda.reset_peak_memory_stats()
         e.train()  # the main path, as tools/train runs it
         e.train_step = ema.step_fn
-        hist = e.train_loop.history
-        losses = [h["loss"] for h in hist]
-        check(len(hist) == TRAIN_STEPS and all(np.isfinite(losses))
-              and all(0.0 <= v <= 8.0 for v in losses), f"BYOL-R50 losses {losses}")
-        stateful = {id(p) for p in e.optimizer.torch_optimizer.state}
-        named = list(e.model.named_parameters())
-        check(not any(id(p) in stateful for n, p in named if n.startswith("target.")) and
-              all(id(p) in stateful for n, p in named if not n.startswith("target.")),
-              "BYOL-R50: the target has optimizer state, or the online tower lacks it")
-        moved = {tower: all(not torch.equal(v, stats0[k]) for k, v in e.model.state_dict().items()
-                            if k.startswith(tower) and "running" in k)
-                 for tower in ("online.", "target.")}
-        check(all(moved.values()), f"BYOL-R50: BatchNorm statistics moved {moved}")
-        steady = hist[1:]  # the first step pays for cuDNN's and the allocator's warm-up
-        step_s = float(np.median([h["batch_cost"] for h in steady]))
-        reader = float(np.median([h["reader_cost"] for h in steady]))
-        rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": step_s,
-               "pairs_per_s": BYOL_BATCH / step_s, "views_per_s": 2 * BYOL_BATCH / step_s,
-               "reader_s_median": reader, "reader_share": reader / step_s,
-               "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30,
-               "ema_max_rel_err": ema.worst}
-        log("[train] BYOL-R50 bf16: losses " + ", ".join(f"{v:.5f}" for v in losses) + "; "
-            + _fmt(rep))
+        _no_optimizer_state_on(spec, e)
+        _stats_moved(spec, e, stats0, ("online.", "target."))
         log("[train] BYOL-R50: the EMA rule held at every step, the target has no optimizer "
             "state, BatchNorm statistics of both towers moved")
         ckpt = os.path.join(tmp, "bf16", "latest.pt")
         check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no BYOL-R50 checkpoint")
-        log(f"[profile] BYOL-R50 train step, bf16: "
-            f"{_profile(lambda: float(e.train_step(e.state, batch)['loss']))}")
-        out.update(rep)
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 8.0)),
+                   ema_max_rel_err=ema.worst)
         del e, batch
         torch.cuda.empty_cache()
-        e_r = Engine(_byol_config(os.path.join(tmp, "resume"), BYOL_BATCH,
-                                  f"Global.checkpoint={ckpt}",
-                                  f"Global.max_train_step={TRAIN_STEPS + 1}", workers=0),
-                     mode="train", device="cuda")
-        e_r.train()
-        hist = e_r.train_loop.history
-        check(len(hist) == 1 and hist[0]["step"] == TRAIN_STEPS + 1
-              and np.isfinite(hist[0]["loss"]), f"BYOL-R50 resume: history {hist}")
-        log(f"[train] BYOL-R50 resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
-            f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
-        del e_r
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+# f32 on both sides, summed in another order, with exp, cos and sin of another
+# library: 1e-5 of the views' largest magnitude (2.64 after normalize). At strength
+# 1.0 the jitter's values reach 1.8^3 before the clip, where an f32 ulp is 4.8e-7,
+# and normalize multiplies by 1 / 0.225: on an H100 the largest difference was
+# 1.73e-5, at a value of 0.23 (3.9e-6 in [0, 1])
+SIMCLR_AUG_TOL = 1e-5
+
+
+def _simclr_augment_card_vs_cpu() -> dict:
+    """The plain `simclr_device_augment_core` on the card against the CPU, on
+    the same draws and SimCLR's per-card views [128, 224, 224, 3] uint8, at
+    the recipe's jitter strength 1.0."""
+    rng = np.random.RandomState(14)
+    views = [torch.from_numpy(rng.randint(0, 256, (SIMCLR_SPEC.batch, IMG, IMG, 3),
+                                          dtype=np.uint8)) for _ in range(2)]
+    draws = simclr_draws(SIMCLR_SPEC.batch, torch.Generator().manual_seed(14),
+                         torch.device("cpu"), jitter_strength=1.0)
+    want = simclr_device_augment_core(*views, draws)
+    on_card = [{k: ({j: t.cuda() for j, t in v.items()} if isinstance(v, dict) else v.cuda())
+                for k, v in d.items()} for d in draws]
+    got = [g.cpu() for g in simclr_device_augment_core(*(v.cuda() for v in views), on_card)]
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.abs().max().item() for w in want)
+    check(err <= SIMCLR_AUG_TOL * scale,
+          f"SimCLR device augmentation, card vs CPU: max abs err {err} of values up to {scale}")
+    log(f"[augment] SimCLR's plain device augmentation on [{SIMCLR_SPEC.batch}, {IMG}, {IMG}, 3] "
+        f"x 2 views, card vs CPU on the same draws: max abs err {err:.3g}, values up to "
+        f"{scale:.4g} (limit {SIMCLR_AUG_TOL} of that)")
+    return {"aug_max_abs_err": err, "aug_max_abs_value": scale}
+
+
+def phase_train_simclr() -> dict:
+    spec = SIMCLR_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update(_simclr_augment_card_vs_cpu())
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        check(e.policy.compute_dtype == torch.bfloat16 and e.model.use_device_augment
+              and e.model.jitter_strength == 1.0
+              and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS"
+              and e.config["LRScheduler"]["name"] == "simclrCosineWarmup",
+              "SimCLR-R50: not the recipe's bf16 / device augment / LARS / simclrCosineWarmup")
+        stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
+        batch = _ssl_first_batch(e, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        _stats_moved(spec, e, stats0, ("backbone.", "neck."))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no SimCLR-R50 checkpoint")
+        out.update(_ssl_report(spec, e, batch))
+        log("[train] SimCLR-R50: every loss finite, every acc1 in [0, 1], BatchNorm statistics "
+            "of the backbone and the neck moved")
+        del e, batch
         torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _QueueCheck:
+    """Wraps MoCo's train step: after step t the pointer is N t mod K, the N
+    columns written at step t are unit-norm, and every column not yet
+    written holds its init bitwise."""
+
+    def __init__(self, engine: Engine):
+        self.engine, self.step_fn = engine, engine.train_step
+        self.queue0 = engine.model.queue.clone()
+        self.worst_norm_err = 0.0
+
+    def __call__(self, state, batch):
+        model = self.engine.model
+        n, k = self.engine.global_batch_size, model.K
+        start = int(model.queue_ptr)
+        metrics = self.step_fn(state, batch)
+        t = state.step
+        check(int(model.queue_ptr) == n * t % k,
+              f"MoCoV2-R50: queue_ptr {int(model.queue_ptr)} after {t} steps, want {n * t % k}")
+        norms = model.queue[:, start:start + n].norm(dim=0)
+        self.worst_norm_err = max(self.worst_norm_err, (norms - 1).abs().max().item())
+        check(self.worst_norm_err <= 1e-5, f"MoCoV2-R50: written keys' norms off 1 by "
+                                           f"{self.worst_norm_err} at step {t}")
+        check(torch.equal(model.queue[:, n * t:], self.queue0[:, n * t:]),
+              f"MoCoV2-R50: a column past {n * t} changed by step {t}")
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+@contextlib.contextmanager
+def _one_permutation(n: int):
+    """MoCo's shuffle-BN draws one fixed permutation of n, on every device."""
+    perm = np.random.RandomState(15).permutation(n)
+    orig = moco.shuffle_permutation
+    moco.shuffle_permutation = lambda n_, generator, device: torch.from_numpy(perm).to(device)
+    try:
+        yield
+    finally:
+        moco.shuffle_permutation = orig
+
+
+def phase_train_moco() -> dict:
+    spec = MOCO_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with _one_permutation(spec.grad_batch):
+            out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        splits = {m.num_splits for m in e.model.modules() if isinstance(m, SplitBatchNorm)}
+        check(e.policy.compute_dtype == torch.bfloat16 and splits == {8}
+              and e.model.K == 65536 and e.model.queue.dtype == torch.float32
+              and e.config["Optimizer"]["name"] == "Momentum",
+              f"MoCoV2-R50: not the recipe's bf16 / bn_splits 8 ({splits}) / K 65,536 / Momentum")
+        stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
+        batch = _ssl_first_batch(e, "cuda")
+        ema = _EmaCheck(spec.tag, e)
+        queue = _QueueCheck(e)
+        queue.step_fn, e.train_step = ema, queue
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        e.train_step = ema.step_fn
+        check(ema.m_fn(0) == ema.m_fn(TRAIN_STEPS) == float(np.float32(0.999)),
+              "MoCoV2-R50: the key encoder's momentum is not the constant 0.999")
+        _no_optimizer_state_on(spec, e)
+        _stats_moved(spec, e, stats0, ("encoder_q.", "encoder_k."))
+        log(f"[train] MoCoV2-R50: the EMA rule (m 0.999) held at every step "
+            f"(max rel err {ema.worst:.3g}), encoder_k has no optimizer state, queue_ptr "
+            f"{int(e.model.queue_ptr)} = {spec.batch} x {TRAIN_STEPS}, written keys unit-norm to "
+            f"{queue.worst_norm_err:.3g}, unwritten columns bitwise at their init")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no MoCoV2-R50 checkpoint")
+        saved = {k: e.model.state_dict()[k].clone() for k in ("queue", "queue_ptr")}
+        out.update(_ssl_report(spec, e, batch), ema_max_rel_err=ema.worst,
+                   key_norm_max_err=queue.worst_norm_err)
+        del e, batch, queue
+        torch.cuda.empty_cache()
+
+        def restored(engine):
+            state = engine.model.state_dict()
+            check(all(torch.equal(state[k], v) for k, v in saved.items()),
+                  "MoCoV2-R50: the resumed queue or pointer differs from the checkpoint's")
+            log("[train] MoCoV2-R50 resume: queue and queue_ptr bitwise as saved")
+
+        _ssl_resume(spec, tmp, ckpt, restored)
     return out
 
 
@@ -1513,6 +1752,8 @@ def main() -> None:
     vit = _timed("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
     aug = _timed("augment", phase_augment)
     _timed("train BYOL-R50", phase_train_byol)
+    _timed("train SimCLR-R50", phase_train_simclr)
+    _timed("train MoCoV2-R50", phase_train_moco)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

@@ -33,6 +33,12 @@ def resolve_dtype(name: Union[str, torch.dtype, None]) -> torch.dtype:
     return _DTYPES[name]
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 where the JAX package casts to float32 for a loss, and
+    kept in float64 where it is (a model run in f64 as a numerics yardstick)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """torch.bfloat16 -> "bfloat16" (for configs and artifacts)."""
     return str(dtype).removeprefix("torch.")

@@ -18,6 +18,11 @@ def register_model(cls=None, name: Optional[str] = None):
     return MODELS.register(cls, name=name)
 
 
+def two_views(batch) -> tuple:
+    """An SSL method's batch, (view1, view2) or {"view1", "view2"} -> (view1, view2)."""
+    return (batch["view1"], batch["view2"]) if isinstance(batch, dict) else (batch[0], batch[1])
+
+
 def build_model(config: dict) -> nn.Module:
     """config: {'name': <registered name>, **kwargs}."""
     return build_from_config(dict(config), MODELS)

@@ -11,6 +11,9 @@ import inspect
 from collections.abc import Mapping
 from typing import Any
 
+import torch
+from torch import nn
+
 from .base import MODELS
 
 
@@ -31,3 +34,16 @@ def build_submodule(cfg: Any, **defaults):
     if not has_var_kw and not inspect.isclass(target):
         cfg = {k: v for k, v in cfg.items() if k in params}
     return target(**cfg)
+
+
+class Encoder(nn.Module):
+    """A backbone and the neck over it, each from its config block (the
+    towers of BYOL and the encoders of MoCo; flax names `backbone`, `neck`)."""
+
+    def __init__(self, backbone: Any, neck: Any, dtype: torch.dtype):
+        super().__init__()
+        self.backbone = build_submodule(backbone, dtype=dtype)
+        self.neck = build_submodule(neck, dtype=dtype, in_channels=self.backbone.out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.neck(self.backbone(x))

@@ -25,8 +25,8 @@ from torch import nn
 from ..core.amp import resolve_dtype
 from ..nn.norm import l2_normalize
 from ..ops.augment import byol_device_augment
-from .base import register_model
-from .builder import build_submodule
+from .base import register_model, two_views
+from .builder import Encoder, build_submodule
 
 DtypeLike = Union[str, torch.dtype]
 
@@ -36,20 +36,6 @@ def byol_regression_loss(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     p = l2_normalize(p.float(), dim=-1)
     z = l2_normalize(z.float(), dim=-1)
     return 2.0 - 2.0 * torch.mean(torch.sum(p * z, dim=-1))
-
-
-class _Tower(nn.Module):
-    def __init__(self, backbone: Any, neck: Any, dtype: torch.dtype):
-        super().__init__()
-        self.backbone = build_submodule(backbone, dtype=dtype)
-        self.neck = build_submodule(neck, dtype=dtype, in_channels=self.backbone.out_channels)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.neck(self.backbone(x))
-
-
-def _views(batch):
-    return (batch["view1"], batch["view2"]) if isinstance(batch, dict) else (batch[0], batch[1])
 
 
 @register_model
@@ -65,8 +51,8 @@ class BYOL(nn.Module):
         self.momentum_schedule = momentum_schedule
         self.use_device_augment = use_device_augment
         self.dtype = dtype
-        self.online = _Tower(backbone, neck, dtype)
-        self.target = _Tower(backbone, neck, dtype)
+        self.online = Encoder(backbone, neck, dtype)
+        self.target = Encoder(backbone, neck, dtype)
         self.predictor = build_submodule(predictor, dtype=dtype,
                                          in_channels=self.online.neck.out_channels)
 
@@ -81,7 +67,7 @@ class BYOL(nn.Module):
         return [r"^target\."]
 
     def forward(self, batch, generator: Optional[torch.Generator] = None) -> dict:
-        v1, v2 = _views(batch)
+        v1, v2 = two_views(batch)
         if self.use_device_augment:
             if generator is None:
                 raise ValueError("BYOL use_device_augment needs the train state's generator")

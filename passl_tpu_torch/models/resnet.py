@@ -8,7 +8,9 @@ channels-last memory (`x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor
 is one; any other input is copied into it), which is the layout cuDNN
 takes fastest on the card. Convolutions compute
 at `dtype` with f32 kernels (kaiming-normal, fan-out, relu gain); the
-BatchNorms are `nn.norm.BatchNorm` (flax's semantics). With `num_classes=0`
+BatchNorms are `nn.norm.BatchNorm` (flax's semantics), or with
+`bn_splits > 1` `nn.norm.SplitBatchNorm` at every norm position (MoCo's
+shuffle-BN, as JAX's `_make_norm` builds it). With `num_classes=0`
 there is no `fc`; with `with_pool=False` the output is the NHWC feature map
 (`[N, 7, 7, 2048]` for ResNet-50 at 224), as the SSL necks take it.
 
@@ -17,12 +19,14 @@ ModuleList `layer{i}`), so `utils.convert.flax_to_torch` maps one onto the
 other.
 
 Not ported, and refused: `stem_impl: s2d` (the TPU's space-to-depth stem),
-`bn_impl` other than `flax` (`fused_grad`, `ghost_grad`), `bn_splits > 1`
-(MoCo's SplitBatchNorm) and `bn_stats_stride` / `bn_stats_slice > 1`.
+`bn_impl` other than `flax` (`fused_grad`, `ghost_grad`) and
+`bn_stats_stride` / `bn_stats_slice > 1`. `bn_splits` together with
+`bn_stats_*` raises ValueError, as in JAX.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import functools
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +35,7 @@ from torch import nn
 from ..core.amp import resolve_dtype
 from ..nn import init as tinit
 from ..nn.layers import Dense
-from ..nn.norm import BatchNorm
+from ..nn.norm import BatchNorm, SplitBatchNorm
 from .base import MODELS, register_model
 
 DtypeLike = Union[str, torch.dtype]
@@ -63,15 +67,15 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1, downsample: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: Callable[..., nn.Module] = BatchNorm):
         super().__init__()
         self.conv1 = Conv(in_channels, filters, 3, stride, 1, dtype=dtype)
-        self.bn1 = BatchNorm(filters, dtype=dtype)
+        self.bn1 = norm(filters, dtype=dtype)
         self.conv2 = Conv(filters, filters, 3, 1, 1, dtype=dtype)
-        self.bn2 = BatchNorm(filters, dtype=dtype)
+        self.bn2 = norm(filters, dtype=dtype)
         if downsample:
             self.downsample_conv = Conv(in_channels, filters, 1, stride, dtype=dtype)
-            self.downsample_bn = BatchNorm(filters, dtype=dtype)
+            self.downsample_bn = norm(filters, dtype=dtype)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,19 +89,20 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64, dtype: torch.dtype = torch.float32):
+                 groups: int = 1, base_width: int = 64, dtype: torch.dtype = torch.float32,
+                 norm: Callable[..., nn.Module] = BatchNorm):
         super().__init__()
         width = int(filters * (base_width / 64.0)) * groups
         out = filters * self.expansion
         self.conv1 = Conv(in_channels, width, 1, dtype=dtype)
-        self.bn1 = BatchNorm(width, dtype=dtype)
+        self.bn1 = norm(width, dtype=dtype)
         self.conv2 = Conv(width, width, 3, stride, 1, groups=groups, dtype=dtype)
-        self.bn2 = BatchNorm(width, dtype=dtype)
+        self.bn2 = norm(width, dtype=dtype)
         self.conv3 = Conv(width, out, 1, dtype=dtype)
-        self.bn3 = BatchNorm(out, dtype=dtype)
+        self.bn3 = norm(out, dtype=dtype)
         if downsample:
             self.downsample_conv = Conv(in_channels, out, 1, stride, dtype=dtype)
-            self.downsample_bn = BatchNorm(out, dtype=dtype)
+            self.downsample_bn = norm(out, dtype=dtype)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -110,14 +115,15 @@ class BottleneckBlock(nn.Module):
 
 def _refuse_unported(stem_impl: str, bn_impl: str, bn_splits: int, bn_stats_stride: int,
                      bn_stats_slice: int) -> None:
+    if bn_splits > 1 and (bn_stats_stride > 1 or bn_stats_slice > 1):
+        raise ValueError("bn_splits and bn_stats_stride/slice are mutually exclusive "
+                         "(SplitBatchNorm already computes per-split stats)")
     if stem_impl != "conv7":
         raise NotImplementedError(f"ResNet stem_impl={stem_impl!r}: the port has the conv7 stem "
                                   "only (s2d is the TPU's space-to-depth formulation)")
     if bn_impl != "flax":
         raise NotImplementedError(f"ResNet bn_impl={bn_impl!r}: the port has the flax BatchNorm "
                                   "only")
-    if bn_splits > 1:
-        raise NotImplementedError("ResNet bn_splits > 1 (SplitBatchNorm) is not ported yet")
     if bn_stats_stride > 1 or bn_stats_slice > 1:
         raise NotImplementedError("ResNet bn_stats_stride / bn_stats_slice > 1 (subsampled BN "
                                   "statistics) are not ported")
@@ -141,6 +147,8 @@ class ResNet(nn.Module):
             raise ValueError(f"ResNet block {block!r}: expected 'basic' or 'bottleneck'")
         dtype = resolve_dtype(dtype)
         block_cls = BasicBlock if block == "basic" else BottleneckBlock
+        norm = (functools.partial(SplitBatchNorm, num_splits=bn_splits) if bn_splits > 1
+                else BatchNorm)
         self.num_classes = num_classes
         self.with_pool = with_pool
         self.cifar_stem = cifar_stem
@@ -150,14 +158,14 @@ class ResNet(nn.Module):
             self.conv1 = Conv(in_chans, 64, 3, 1, 1, dtype=dtype)
         else:
             self.conv1 = Conv(in_chans, 64, 7, 2, 3, dtype=dtype)
-        self.bn1 = BatchNorm(64, dtype=dtype)
+        self.bn1 = norm(64, dtype=dtype)
         in_ch, filters = 64, 64
         for i, n_blocks in enumerate(layers):
             stage = nn.ModuleList()
             for j in range(n_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
                 out_ch = filters * block_cls.expansion
-                kw = dict(downsample=stride != 1 or in_ch != out_ch, dtype=dtype)
+                kw = dict(downsample=stride != 1 or in_ch != out_ch, dtype=dtype, norm=norm)
                 if block_cls is BottleneckBlock:
                     kw.update(groups=groups, base_width=width_per_group)
                 stage.append(block_cls(in_ch, filters, stride, **kw))

@@ -1,6 +1,8 @@
-"""Normalization: `l2_normalize` and a BatchNorm with flax's semantics.
+"""Normalization: `l2_normalize`, a BatchNorm with flax's semantics, and
+MoCo's `SplitBatchNorm`.
 
-Counterpart of `passl_tpu/nn/norm.py:26-28` (`l2_normalize`) and of flax's
+Counterpart of `passl_tpu/nn/norm.py:26-86` (`l2_normalize`,
+`SplitBatchNorm`) and of flax's
 `nn.BatchNorm` as `passl_tpu/models/resnet.py:73-79` and
 `passl_tpu/models/necks.py` build it (`momentum=0.9, epsilon=1e-5`).
 
@@ -21,9 +23,18 @@ rounding. On one value per channel in training (a [1, C] batch), where
 
 There is no `num_batches_tracked`: flax keeps no such counter, and
 `utils.convert` fills every buffer from the `batch_stats` tree.
+
+`SplitBatchNorm` (MoCo's shuffle-BN, `bn_splits` on the ResNet) takes its
+training statistics in f32 over `gcd(N, num_splits)` equal slices of the
+batch, each slice normalized by its own mean and biased variance, as the
+per-GPU BatchNorms of the reference did; its running statistics are
+full-batch (the mean of the split means, and mean(var_s + mean_s^2) -
+mean^2, as JAX takes them), and eval uses them. It has `BatchNorm`'s names,
+so the converter needs no rule of its own.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -100,6 +111,62 @@ class BatchNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.view(shape)
         with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        return y.to(self.compute_dtype)
+
+
+class SplitBatchNorm(BatchNorm):
+    """`passl_tpu/nn/norm.py:31 SplitBatchNorm(num_splits)` over channel axis 1.
+
+    In training each of the `gcd(N, num_splits)` slices of the batch goes
+    through PyTorch's batch norm on its own (on the card: bf16 activations in
+    and out, statistics and normalization in f32, only the input kept for the
+    backward), and the running update takes each slice's mean and variance
+    from the statistics that call returns (variance = invstd^-2 - epsilon).
+    A slice of one value per channel has variance 0 and normalizes to 0
+    exactly, as in JAX: its output is the bias (the batch norm's
+    x invstd - mean invstd would leave rounding of x / sqrt(epsilon))."""
+
+    def __init__(self, num_features: int, num_splits: int = 8, momentum: float = 0.9,
+                 epsilon: float = 1e-5, use_bias: bool = True, use_scale: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, momentum, epsilon, use_bias, use_scale, dtype)
+        self.num_splits = num_splits
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x = x.to(self.compute_dtype)
+        splits = math.gcd(x.shape[0], self.num_splits)  # a batch too small takes fewer
+        if x.numel() == splits * x.shape[1]:
+            return self._one_value_per_split(x, splits)
+        outs, means, invstds = zip(*(
+            torch.native_batch_norm(part, self.weight, self.bias, None, None, True, 0.0,
+                                    self.epsilon) for part in x.chunk(splits)))
+        with torch.no_grad():
+            mean_s = torch.stack(means).float()
+            var_s = torch.stack(invstds).float().pow(-2) - self.epsilon
+            full_mean = mean_s.mean(0)
+            full_var = (var_s + mean_s * mean_s).mean(0) - full_mean * full_mean
+            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * full_mean)
+            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * full_var)
+        return torch.cat(outs)
+
+    def _one_value_per_split(self, x: torch.Tensor, splits: int) -> torch.Tensor:
+        """Each split's mean is its value and its variance 0: the output is the
+        bias (0 without one), x takes no gradient, and the running statistics
+        take the batch's mean and biased variance."""
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        y = torch.zeros_like(x, dtype=torch.float32)
+        if self.weight is not None:
+            y = y * self.weight.view(shape)
+        if self.bias is not None:
+            y = y + self.bias.view(shape)
+        with torch.no_grad():
+            values = x.float().reshape(splits, -1)
+            mean = values.mean(0)
+            var = (values * values).mean(0) - mean * mean
             self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
             self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         return y.to(self.compute_dtype)

@@ -75,7 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         # the JAX engine's refusal (passl_tpu/engine/engine.py:553-559)
         raise ValueError(
             "export targets inference models (logits/features). For an SSL pretrain config, "
-            "first extract the backbone (passl_tpu.tools.extract_weights) and export a "
+            "first extract the backbone (passl_tpu_torch.tools.extract_weights) and export a "
             "Classification/LinearProbe config over it.")
     output_dir = g.get("output_dir", "./output")
     logger.init_logger(log_file=os.path.join(output_dir, "export.log"))

@@ -6,7 +6,9 @@ ModuleList), `kernel` and LayerNorm's `scale` become `weight`, other leaf
 names stay. Layouts: a Dense kernel `[in, out]` becomes `[out, in]`, a Conv
 kernel HWIO becomes OIHW. BatchNorm statistics come from the flax
 `batch_stats` tree: `mean` becomes `running_mean` and `var` `running_var`.
-Every flax leaf must land on a torch parameter or buffer of the same shape,
+The leaves of another variable collection (`collections`, e.g. MoCo's `ssl`
+with its `queue` and `queue_ptr`) land on the buffers of the same names,
+their layouts and dtypes kept as the buffers have them. Every flax leaf must land on a torch parameter or buffer of the same shape,
 and every entry of the model's `state_dict` must be filled.
 """
 from __future__ import annotations
@@ -34,9 +36,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def _torch_name(path: str, arr: np.ndarray, stats: bool = False) -> tuple[str, np.ndarray]:
+def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
+                verbatim: bool = False) -> tuple[str, np.ndarray]:
     *modules, leaf = path.split("/")
     modules = [_LIST_ITEM.sub(r".\1", m) for m in modules]
+    if verbatim:
+        return ".".join([*modules, leaf]), arr
     if stats:
         if leaf not in _STATS:
             raise ValueError(f"batch_stats leaf {path!r}: expected mean or var")
@@ -55,21 +60,26 @@ def _torch_name(path: str, arr: np.ndarray, stats: bool = False) -> tuple[str, n
 
 
 def flax_to_torch(params: Mapping, model: torch.nn.Module,
-                  batch_stats: Mapping | None = None) -> dict[str, torch.Tensor]:
-    """params (and a model with BatchNorm's `batch_stats`): the flax trees as
-    numpy arrays -> a state_dict for `model`."""
+                  batch_stats: Mapping | None = None,
+                  collections: Mapping[str, Mapping] | None = None) -> dict[str, torch.Tensor]:
+    """params (and a model with BatchNorm's `batch_stats`, and any other
+    variable collections by name): the flax trees as numpy arrays -> a
+    state_dict for `model`."""
     target = model.state_dict()
     out: dict[str, torch.Tensor] = {}
-    leaves = [(p, a, False) for p, a in _flatten(params).items()]
-    leaves += [(p, a, True) for p, a in _flatten(batch_stats or {}).items()]
-    for path, arr, stats in leaves:
-        key, arr = _torch_name(path, arr, stats)
+    leaves = [(p, a, False, False) for p, a in _flatten(params).items()]
+    leaves += [(p, a, True, False) for p, a in _flatten(batch_stats or {}).items()]
+    for tree in (collections or {}).values():
+        leaves += [(p, a, False, True) for p, a in _flatten(tree).items()]
+    for path, arr, stats, verbatim in leaves:
+        key, arr = _torch_name(path, arr, stats, verbatim)
         if key not in target:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
         if tuple(arr.shape) != tuple(target[key].shape):
             raise ValueError(f"flax leaf {path!r} has shape {arr.shape} after layout change, "
                              f"{key!r} has {tuple(target[key].shape)}")
-        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(target[key].dtype)
+        dtype = arr.dtype if arr.dtype.kind in "iub" else np.float32  # (bf16 has no torch numpy)
+        out[key] = torch.from_numpy(np.array(arr, dtype=dtype)).to(target[key].dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"no flax leaf fills {missing}")

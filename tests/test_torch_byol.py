@@ -416,13 +416,29 @@ def test_resnet_factory_refuses_a_fixed_field_as_jax_does(name, field):
     ({"stem_impl": "s2d"}, "stem_impl"),
     ({"bn_impl": "ghost_grad"}, "bn_impl"),
     ({"bn_impl": "fused_grad"}, "bn_impl"),
-    ({"bn_splits": 2}, "bn_splits"),
     ({"bn_stats_stride": 2}, "bn_stats"),
     ({"bn_stats_slice": 2}, "bn_stats"),
 ])
 def test_resnet_refuses_what_the_port_does_not_carry(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         ResNet(block="basic", layers=[1, 1, 1, 1], **kw)
+
+
+@pytest.mark.parametrize("kw", [{"bn_stats_stride": 2}, {"bn_stats_slice": 2}])
+def test_bn_splits_with_subsampled_statistics_raises_as_jax_does(kw):
+    """SplitBatchNorm already takes per-split statistics: `bn_splits`
+    together with `bn_stats_stride` / `bn_stats_slice` is a ValueError in both
+    packages (JAX raises it where it builds the norm, at init)."""
+    import jax
+    import jax.numpy as jnp
+
+    import passl_tpu.models.resnet as jax_resnet
+
+    jm = jax_resnet.ResNet(block="basic", layers=(1, 1, 1, 1), num_classes=0, bn_splits=2, **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        jm.init(jax.random.PRNGKey(0), jnp.zeros((2, 8, 8, 3)))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ResNet(block="basic", layers=[1, 1, 1, 1], num_classes=0, bn_splits=2, **kw)
 
 
 # -------------------------------------------------------------- optimizer
