@@ -139,7 +139,37 @@ Run from the repo root:  python3 chip_smoke.py
    engine starts from the checkpoint's queue and pointer bitwise; the first
    step card vs CPU at 16 images (2 a split) with one permutation handed to
    both devices, in f32 and f64.
-17. Prints the card line, a JSON line of the eight kernels' results, and
+17. Trains SimSiam ResNet-50 the same way on configs/simsiam/simsiam_r50_in1k.yaml:
+   128 pairs (512 over the 4 cards of the recipe), bf16, Momentum SGD, 8
+   steps. Checks: every loss finite and in [-1, 1]; the BatchNorm statistics
+   of the encoder and the predictor moved; resume; the first step card vs
+   CPU (4 pairs) in f32 and f64 with BYOL's limits (the loss's difference
+   on the scale of its cosines, 1, where their mean cancels), the card's
+   f32 at least as close to f64 as the CPU's f32 (in 14-16 the card's
+   and the CPU's f32 agree at least as well as the CPU's f32 and f64).
+18. Trains MoCo-BYOL ResNet-50 the same way on
+   configs/moco_byol/moco_byol_r50_in1k.yaml: 128 pairs, K = 65,536, dim
+   256, MomentumLARS, the cosine EMA from 0.99, bf16, 8 steps. Checks: after
+   every step each target parameter is m(t) target + (1 - m(t)) online in
+   f32; queue_ptr is 128 t mod K, the keys written are unit-norm and every
+   column not yet written holds its init bitwise; the target has no
+   optimizer state; the statistics of both towers and the predictor moved;
+   loss = byol_loss + contrast_loss at the config's weights; the resumed
+   queue and pointer bitwise; the first step card vs CPU in f32 and f64 at
+   16 pairs, as SimSiam's. Logs the decode and resize backends the host
+   transforms ran.
+19. Trains SwAV ResNet-50 the same way on configs/swav/swav_r50_in1k.yaml:
+   64 images of 2 x 224 + 6 x 96 crops, 3,000 prototypes, MomentumLARS,
+   bf16, 8 steps, the prototypes frozen for 4 (the config's 313 never ends
+   in 8 steps). Checks: the prototypes do not move over steps 1-4 (beyond
+   the renormalization's rounding, 1e-6) and move over steps 5-8; every
+   prototype's norm within 1e-5 of 1 after every step; the stem BatchNorm
+   takes two batches a step (one per resolution); the sinkhorn target on the
+   card against the CPU on the same f32 scores (1e-5 relative) with each
+   sample's row summing to 1 within 1e-5; resume; the first step card vs CPU
+   (8 images, 64 crops) in f32 and f64, as SimSiam's. Prints images/s and
+   crops/s.
+20. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -1328,6 +1358,16 @@ class SSLSpec:
     grad_overrides: tuple
     backbone: str
     no_grad: Optional[str] = None
+    overrides: tuple = ()  # of every run of the phase
+    # the scale of the loss's terms where their mean cancels (SimSiam's cosines,
+    # in [-1, 1], average to 0.005 at the init): the first step's loss
+    # difference is taken relative to the larger of it and the loss
+    loss_scale: float = 0.0
+    # the yardstick of f32: True, the card's f32 must lie at least as close to
+    # f64 as the CPU's f32 does; False, the card's and the CPU's f32 must agree
+    # at least as well as the CPU's f32 and f64 (two f32 errors against one)
+    f32_to_f64: bool = False
+    views: int = 2  # crops of each image; `batch` counts pairs where there are 2, else images
 
 
 BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
@@ -1340,40 +1380,61 @@ SIMCLR_SPEC = SSLSpec("SimCLR-R50", os.path.join(REPO, "configs", "simclr",
 MOCO_SPEC = SSLSpec("MoCoV2-R50", os.path.join(REPO, "configs", "moco", "mocov2_r50_in1k.yaml"),
                     256,  # the config's own batch, in 8 BatchNorm splits
                     16, (), "encoder_q.backbone.", "encoder_k.")  # 2 images a split
+SIMSIAM_SPEC = SSLSpec("SimSiam-R50", os.path.join(REPO, "configs", "simsiam",
+                                                   "simsiam_r50_in1k.yaml"),
+                       128,  # pairs: the recipe's 512 over 4 cards
+                       4, (), "encoder.backbone.", loss_scale=1.0, f32_to_f64=True)
+MOCOBYOL_SPEC = SSLSpec("MoCoBYOL-R50", os.path.join(REPO, "configs", "moco_byol",
+                                                     "moco_byol_r50_in1k.yaml"),
+                        128,  # pairs: the recipe's 1,024 over 8 cards
+                        # 16 pairs: at 4, the gradient through the necks' BatchNorms
+                        # (the last without scale or bias) over 4 samples is a remainder
+                        # that the card's and the CPU's f32 resolve only to a cosine of
+                        # 0.99903 between them (0.99973 at 16), 1 - 1e-14 in f64
+                        16, (), "online.backbone.", "target.", f32_to_f64=True)
+# the config freezes the prototypes for 313 steps, which 8 steps never leave:
+# 4 puts the boundary inside the run
+SWAV_FREEZE = 4
+SWAV_SPEC = SSLSpec("SwAV-R50", os.path.join(REPO, "configs", "swav", "swav_r50_in1k.yaml"),
+                    64,  # images of 2 x 224 + 6 x 96 crops: the recipe's 4,096 over 64 cards
+                    8, (), "backbone.", overrides=(f"Model.freeze_prototypes_iter={SWAV_FREEZE}",),
+                    views=8, f32_to_f64=True)
 
 
 def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
                 workers: int = WORKERS):
     """The in1k config with synthetic images in place of ImageNet (the
-    config's own two-view transforms stay), `batch` pairs, TRAIN_STEPS steps."""
+    config's own host transforms stay; SwAV's multi-crop wrapper keeps its
+    crop stacks around the synthetic images), `batch` images or pairs,
+    TRAIN_STEPS steps."""
     config = cfg_util.get_config(spec.config, overrides=[
         f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
-        "Global.print_batch_step=1", *overrides])
+        "Global.print_batch_step=1", *spec.overrides, *overrides])
     dl = config["DataLoader"]["Train"]
-    dl["dataset"] = {"name": "SyntheticDataset", "size": 1024, "image_size": IMG,
-                     "num_classes": NUM_CLASSES, "transform": dl["dataset"]["transform"]}
+    synthetic = {"name": "SyntheticDataset", "size": 1024, "image_size": IMG,
+                 "num_classes": NUM_CLASSES}
+    if dl["dataset"]["name"] == "SwAVMultiCropDataset":
+        dl["dataset"]["dataset"] = dict(synthetic, transform=None)
+    else:
+        dl["dataset"] = dict(synthetic, transform=dl["dataset"]["transform"])
     dl["sampler"]["batch_size"] = batch
     _loader_threads(dl["loader"], workers)
     return config
 
 
 def _ssl_first_batch(engine: Engine, device: str):
-    """Epoch 1's first batch of views; uint8 where the model augments on the
-    device or takes raw crops (BYOL, SimCLR), f32 where the host normalizes (MoCo)."""
+    """Epoch 1's first batch of views (or crops); uint8 where the model
+    augments on the device or takes raw crops (BYOL, SimCLR), f32 where the
+    host normalizes (MoCo, SimSiam, MoCo-BYOL, SwAV)."""
     dl = dict(engine.config["DataLoader"]["Train"], loader={"num_workers": 0, "prefetch": 0})
     loader = build_dataloader(dl, "Train", seed=engine.seed)
     loader.set_epoch(1)
     batch = engine.prepare_batch(next(iter(loader)))
     dtypes = {np.asarray(v).dtype for v in batch}
-    host_normalized = any("NormalizeImage" in t for t in _transform_names(dl))
+    host_normalized = "NormalizeImage" in json.dumps(dl["dataset"])
     check(dtypes == {np.dtype(np.float32 if host_normalized else np.uint8)},
           f"views reach the device as {dtypes}")
     return to_device(batch, torch.device(device))
-
-
-def _transform_names(dl: dict) -> list:
-    two_views = dl["dataset"]["transform"][-1]["TwoViewsTransform"]
-    return [next(iter(t)) for t in two_views["base_transform1"]]
 
 
 def _to_f64(model: torch.nn.Module) -> None:
@@ -1412,7 +1473,7 @@ def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
     check(len(convs) == 11, f"{spec.tag}: {len(convs)} stem/layer4 convs, want 11")
     cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in convs}
     worst = min(cos_conv, key=cos_conv.get)
-    rel = abs(l_a - l_b) / abs(l_b)
+    rel = abs(l_a - l_b) / max(abs(l_b), spec.loss_scale)
     log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} pairs): loss {l_a:.9f} vs "
         f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
         f"{len(convs)} stem/layer4 convs {cos_conv[worst]:.9f} ({worst})")
@@ -1428,16 +1489,22 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     f32 = _grad_agreement(spec, "f32, card vs CPU", runs["cuda", False], runs["cpu", False])
     f64 = _grad_agreement(spec, "f64, card vs CPU", runs["cuda", True], runs["cpu", True])
     ref = _grad_agreement(spec, "CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
+    card = _grad_agreement(spec, "card, f32 vs f64", runs["cuda", False], runs["cuda", True])
     # at ResNet-50's random init the gradient of a weight that feeds a
     # BatchNorm is a small remainder of large sums, which f32 resolves only to
-    # the yardstick's cosine: in f32 the card and the CPU must agree at least
-    # as well, and to 1e-3; f64 resolves it, and there they must agree to 1e-6
+    # the yardstick's cosine: in f32 the card and the CPU must agree to 1e-3,
+    # and f64 resolves it, and there they must agree to 1e-6
     for rec, tol in ((f32, 1e-3), (f64, 1e-6)):
         check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
               f"{spec.tag} card vs CPU first step: {rec}")
-    check(f32["grad_cos"] >= ref["grad_cos"],
-          f"{spec.tag} f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
-    return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref))
+    if spec.f32_to_f64:
+        check(card["grad_cos"] >= ref["grad_cos"],
+              f"{spec.tag} the card's f32 {card} further from f64 than the CPU's f32 {ref}")
+    else:  # the card and the CPU in f32 agree at least as well as the CPU's f32 and f64
+        check(f32["grad_cos"] >= ref["grad_cos"],
+              f"{spec.tag} f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
+    return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref),
+                                              ("card_f32_vs_f64", card))
             for k, v in rec.items()}
 
 
@@ -1483,7 +1550,8 @@ def _ssl_report(spec: SSLSpec, engine: Engine, batch, loss_range=(0.0, float("in
     step_s = float(np.median([h["batch_cost"] for h in steady]))
     reader = float(np.median([h["reader_cost"] for h in steady]))
     rep = {"first_step_s": hist[0]["batch_cost"], "step_s_median": step_s,
-           "pairs_per_s": spec.batch / step_s, "views_per_s": 2 * spec.batch / step_s,
+           f"{'pairs' if spec.views == 2 else 'images'}_per_s": spec.batch / step_s,
+           "views_per_s": spec.views * spec.batch / step_s,
            "reader_s_median": reader, "reader_share": reader / step_s,
            "max_mem_GB": torch.cuda.max_memory_allocated() / 2**30}
     log(f"[train] {spec.tag} bf16: losses " + ", ".join(f"{v:.5f}" for v in losses)
@@ -1626,12 +1694,12 @@ def phase_train_simclr() -> dict:
 
 
 class _QueueCheck:
-    """Wraps MoCo's train step: after step t the pointer is N t mod K, the N
-    columns written at step t are unit-norm, and every column not yet
-    written holds its init bitwise."""
+    """Wraps a queue's train step (MoCo, MoCo-BYOL): after step t the pointer
+    is N t mod K, the N columns written at step t are unit-norm, and every
+    column not yet written holds its init bitwise."""
 
-    def __init__(self, engine: Engine):
-        self.engine, self.step_fn = engine, engine.train_step
+    def __init__(self, tag: str, engine: Engine):
+        self.tag, self.engine, self.step_fn = tag, engine, engine.train_step
         self.queue0 = engine.model.queue.clone()
         self.worst_norm_err = 0.0
 
@@ -1642,13 +1710,13 @@ class _QueueCheck:
         metrics = self.step_fn(state, batch)
         t = state.step
         check(int(model.queue_ptr) == n * t % k,
-              f"MoCoV2-R50: queue_ptr {int(model.queue_ptr)} after {t} steps, want {n * t % k}")
+              f"{self.tag}: queue_ptr {int(model.queue_ptr)} after {t} steps, want {n * t % k}")
         norms = model.queue[:, start:start + n].norm(dim=0)
         self.worst_norm_err = max(self.worst_norm_err, (norms - 1).abs().max().item())
-        check(self.worst_norm_err <= 1e-5, f"MoCoV2-R50: written keys' norms off 1 by "
+        check(self.worst_norm_err <= 1e-5, f"{self.tag}: written keys' norms off 1 by "
                                            f"{self.worst_norm_err} at step {t}")
         check(torch.equal(model.queue[:, n * t:], self.queue0[:, n * t:]),
-              f"MoCoV2-R50: a column past {n * t} changed by step {t}")
+              f"{self.tag}: a column past {n * t} changed by step {t}")
         return metrics
 
     def __getattr__(self, name):
@@ -1683,7 +1751,7 @@ def phase_train_moco() -> dict:
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
         batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
-        queue = _QueueCheck(e)
+        queue = _QueueCheck(spec.tag, e)
         queue.step_fn, e.train_step = ema, queue
         torch.cuda.reset_peak_memory_stats()
         e.train()  # the main path, as tools/train runs it
@@ -1711,6 +1779,207 @@ def phase_train_moco() -> dict:
             log("[train] MoCoV2-R50 resume: queue and queue_ptr bitwise as saved")
 
         _ssl_resume(spec, tmp, ckpt, restored)
+    return out
+
+
+def phase_train_simsiam() -> dict:
+    spec = SIMSIAM_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        check(e.policy.compute_dtype == torch.bfloat16
+              and e.config["Optimizer"]["name"] == "Momentum",
+              "SimSiam-R50: not the recipe's bf16 / Momentum")
+        stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
+        batch = _ssl_first_batch(e, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        _stats_moved(spec, e, stats0, ("encoder.", "predictor."))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no SimSiam-R50 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(-1.0, 1.0)))
+        log("[train] SimSiam-R50: every loss finite and in [-1, 1], BatchNorm statistics of the "
+            "encoder and the predictor moved")
+        del e, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+def _host_backends(dataset) -> list:
+    """(transform, backend) of every host transform that has a backend
+    (decode, resize), found by walking the dataset's transforms."""
+    found, seen = set(), set()
+
+    def walk(obj, depth: int) -> None:
+        if depth > 8 or id(obj) in seen or isinstance(obj, (str, bytes, int, float, np.ndarray)):
+            return
+        seen.add(id(obj))
+        if isinstance(getattr(obj, "backend", None), str):
+            found.add((type(obj).__name__, obj.backend))
+        items = obj if isinstance(obj, (list, tuple)) else (
+            obj.values() if isinstance(obj, dict) else getattr(obj, "__dict__", {}).values())
+        for v in items:
+            walk(v, depth + 1)
+
+    walk(dataset, 0)
+    return sorted(found)
+
+
+def phase_train_mocobyol() -> dict:
+    from passl_tpu_torch.data import transforms as host_transforms
+
+    spec = MOCOBYOL_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and m.K == 65536
+              and tuple(m.queue.shape) == (256, 65536) and m.queue.dtype == torch.float32
+              and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS"
+              and e.config["Optimizer"]["name"] == "MomentumLARS",
+              "MoCoBYOL-R50: not the recipe's bf16 / K 65,536 / dim 256 / LARS")
+        backends = _host_backends(e.train_dataloader.dataset)
+        log(f"[train] MoCoBYOL-R50 host transforms: the config asks for cv2; cv2 importable: "
+            f"{host_transforms._HAS_CV2}; the transforms run {backends}")
+        stats0 = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
+        batch = _ssl_first_batch(e, "cuda")
+        ema = _EmaCheck(spec.tag, e)
+        queue = _QueueCheck(spec.tag, e)
+        queue.step_fn, e.train_step = ema, queue
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        e.train_step = ema.step_fn
+        m0, m_end = ema.m_fn(0), ema.m_fn(TRAIN_STEPS)
+        check(abs(m0 - 0.99) <= 1e-6 and 0.99 < m_end < 1.0,
+              f"MoCoBYOL-R50: the target's momentum is not the cosine from 0.99: {m0}, {m_end}")
+        _no_optimizer_state_on(spec, e)
+        _stats_moved(spec, e, stats0, ("online.", "target.", "predictor."))
+        hist = e.train_loop.history
+        mix = max(abs(h["loss"] - (m.byol_weight * h["byol_loss"]
+                                   + m.contrast_weight * h["contrast_loss"])) / abs(h["loss"])
+                  for h in hist)
+        # the f32 sum of two f32 scalars against its double
+        check(mix <= 1e-6, f"MoCoBYOL-R50: loss is not byol_loss + contrast_loss ({mix})")
+        log(f"[train] MoCoBYOL-R50: byol_loss " + ", ".join(f"{h['byol_loss']:.5f}" for h in hist)
+            + "; contrast_loss " + ", ".join(f"{h['contrast_loss']:.5f}" for h in hist)
+            + f"; loss = {m.byol_weight} byol + {m.contrast_weight} contrast to {mix:.3g}; the EMA "
+            f"rule (cosine from 0.99, m {m0:.6f} -> {ema.m_fn(TRAIN_STEPS - 1):.6f}) held at every "
+            f"step (max rel err {ema.worst:.3g}), the target has no optimizer state, queue_ptr "
+            f"{int(m.queue_ptr)} = {spec.batch} x {TRAIN_STEPS}, written keys unit-norm to "
+            f"{queue.worst_norm_err:.3g}, unwritten columns bitwise at their init")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no MoCoBYOL-R50 checkpoint")
+        saved = {k: m.state_dict()[k].clone() for k in ("queue", "queue_ptr")}
+        out.update(_ssl_report(spec, e, batch), ema_max_rel_err=ema.worst,
+                   key_norm_max_err=queue.worst_norm_err, loss_mix_rel_err=mix,
+                   host_backends=backends)
+        del e, m, batch, queue
+        torch.cuda.empty_cache()
+
+        def restored(engine):
+            state = engine.model.state_dict()
+            check(all(torch.equal(state[k], v) for k, v in saved.items()),
+                  "MoCoBYOL-R50: the resumed queue or pointer differs from the checkpoint's")
+            log("[train] MoCoBYOL-R50 resume: queue and queue_ptr bitwise as saved")
+
+        _ssl_resume(spec, tmp, ckpt, restored)
+    return out
+
+
+class _PrototypeCheck:
+    """Wraps SwAV's train step: after every step each prototype (a row of the
+    weight) is unit-norm within 1e-5; records how far the prototypes moved
+    (the largest entry's change) in each step."""
+
+    def __init__(self, engine: Engine):
+        self.engine, self.step_fn = engine, engine.train_step
+        self.moved, self.worst_norm_err = [], 0.0
+
+    def __call__(self, state, batch):
+        w = self.engine.model.prototypes.weight
+        before = w.detach().clone()
+        metrics = self.step_fn(state, batch)
+        self.worst_norm_err = max(self.worst_norm_err,
+                                  (w.detach().norm(dim=1) - 1).abs().max().item())
+        check(self.worst_norm_err <= 1e-5, f"SwAV-R50: a prototype's norm is off 1 by "
+                                           f"{self.worst_norm_err} after step {state.step}")
+        self.moved.append((w.detach() - before).abs().max().item())
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+def _sinkhorn_card_vs_cpu(model, crops) -> dict:
+    """The sinkhorn target of crop 0's f32 scores (the trained model in eval)
+    on the card against the CPU on the same scores."""
+    from passl_tpu_torch.models.swav import sinkhorn_knopp
+
+    model.eval()
+    with torch.no_grad():
+        scores = model.prototypes(model.neck(model.backbone(crops[0])).float())
+    model.train()
+    q = sinkhorn_knopp(scores, model.epsilon, model.sinkhorn_iterations)
+    want = sinkhorn_knopp(scores.cpu(), model.epsilon, model.sinkhorn_iterations)
+    rel = ((q.cpu() - want).abs() / want.abs()).max().item()
+    row_err = (q.sum(dim=1) - 1).abs().max().item()
+    check(rel <= 1e-5 and row_err <= 1e-5,
+          f"SwAV-R50 sinkhorn card vs CPU: rel err {rel}, row sums off 1 by {row_err}")
+    log(f"[train] SwAV-R50 sinkhorn on {list(scores.shape)} f32 scores, card vs CPU: max rel err "
+        f"{rel:.3g}, each sample's row of q sums to 1 within {row_err:.3g}")
+    return {"sinkhorn_rel_err": rel, "sinkhorn_row_err": row_err}
+
+
+def phase_train_swav() -> dict:
+    spec = SWAV_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and m.num_crops == (2, 6)
+              and tuple(m.prototypes.weight.shape) == (3000, 128)
+              and m.prototypes.weight.dtype == torch.float32
+              and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS"
+              and e.optimizer.group_of("prototypes.weight").freeze_steps == SWAV_FREEZE,
+              "SwAV-R50: not the recipe's bf16 / 2 + 6 crops / 3,000 f32 prototypes / LARS / "
+              f"a freeze of {SWAV_FREEZE}")
+        batch = _ssl_first_batch(e, "cuda")
+        check([tuple(c.shape[1:3]) for c in batch] == [(IMG, IMG)] * 2 + [(96, 96)] * 6,
+              f"SwAV-R50 crops {[tuple(c.shape) for c in batch]}")
+        stem_calls = []
+        hook = m.backbone.bn1.register_forward_hook(lambda *_: stem_calls.append(1))
+        proto = _PrototypeCheck(e)
+        e.train_step = proto
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        e.train_step = proto.step_fn
+        hook.remove()
+        check(len(stem_calls) == 2 * TRAIN_STEPS,
+              f"SwAV-R50: the stem BatchNorm took {len(stem_calls)} batches in {TRAIN_STEPS} "
+              "steps, want 2 a step (one per crop resolution)")
+        frozen, free = proto.moved[:SWAV_FREEZE], proto.moved[SWAV_FREEZE:]
+        # frozen: lr 0, then the renormalization of unit rows rounds (1e-6)
+        check(max(frozen) <= 1e-6 < min(free),
+              f"SwAV-R50: prototypes moved {proto.moved} by step, frozen for {SWAV_FREEZE}")
+        log(f"[train] SwAV-R50: prototypes' largest move by step "
+            + ", ".join(f"{v:.3g}" for v in proto.moved)
+            + f" (frozen for {SWAV_FREEZE}), unit-norm to {proto.worst_norm_err:.3g} after every "
+            f"step; the stem BatchNorm took {len(stem_calls)} batches in {TRAIN_STEPS} steps")
+        out.update(_sinkhorn_card_vs_cpu(m, batch))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no SwAV-R50 checkpoint")
+        out.update(_ssl_report(spec, e, batch), prototype_moves=proto.moved,
+                   prototype_norm_max_err=proto.worst_norm_err)
+        del e, m, batch, proto
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
     return out
 
 
@@ -1754,6 +2023,9 @@ def main() -> None:
     _timed("train BYOL-R50", phase_train_byol)
     _timed("train SimCLR-R50", phase_train_simclr)
     _timed("train MoCoV2-R50", phase_train_moco)
+    _timed("train SimSiam-R50", phase_train_simsiam)
+    _timed("train MoCoBYOL-R50", phase_train_mocobyol)
+    _timed("train SwAV-R50", phase_train_swav)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

@@ -10,12 +10,17 @@ state_dict file), the param-group optimizer, the lr schedule and the
 gradient clip, the train state, the train and eval steps, and the loops.
 
 Without a `Loss` block (the SSL methods) the model returns its loss dict,
-the loop is `ContrastiveLearningTrainingEpochLoop`, and a model's `ema_map`
-and `frozen_patterns` are honoured as in the JAX engine (`engine.py:302-388`):
-each EMA target tower starts as a copy of its online tower before the
-optimizer is built (and, after `Global.pretrained_model`, takes from the
-online tower only what the file did not fill), the frozen patterns go to the
-optimizer, and the train step moves each target after the optimizer step.
+the loop is `ContrastiveLearningTrainingEpochLoop`, and a model's `ema_map`,
+`frozen_patterns`, `optimizer_overrides` and `param_transforms` are honoured
+as in the JAX engine (`engine.py:302-416`): each EMA target tower starts as
+a copy of its online tower before the optimizer is built (and, after
+`Global.pretrained_model`, takes from the online tower only what the file
+did not fill), the frozen patterns go to the optimizer, the overrides are
+appended to the config's `param_group` (so a config group wins on first
+match), the transforms rewrite the fresh or pretrained parameters once
+before the train state is built (a resumed checkpoint is taken as saved),
+and the train step applies the transforms and then moves each target after
+every applied optimizer step.
 `Global.pretrained_model` loads as the JAX loader does: missing entries and
 shape mismatches keep the init, a `pos_embed` of another grid is resized,
 keys the model lacks are ignored.
@@ -26,9 +31,7 @@ device, so no worker is forked from a process that holds a CUDA context.
 Not ported yet, and refused when the config asks for them: meshes and
 sharding (`DistributedStrategy` degrees above 1, `recompute`), a
 `torch.distributed` world of more than one process (nothing reduces the
-gradients yet),
-`param_transforms` and `optimizer_overrides` (SwAV, DINO and others), hooks
-and the profiler.
+gradients yet), hooks and the profiler.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ from ..optimizer import build_optimizer
 from ..scheduler import build_lr_scheduler
 from ..utils import io, logger
 from . import loops as loops_mod
-from .steps import EvalMetricsStep, TrainStep, ema_pairs_of
+from .steps import (EvalMetricsStep, TrainStep, apply_param_transforms, ema_pairs_of,
+                    param_transforms_of)
 
 _PARALLEL_KEYS = ("tensor_parallel", "mp_degree", "sharding", "sharding_degree", "fsdp_degree",
                   "pipeline_parallel", "pp_degree", "pipeline")
@@ -86,6 +90,25 @@ def _device(device: Union[str, torch.device]) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("Engine: device is cuda but torch.cuda.is_available() is False")
     return device
+
+
+def model_optimizer(model: torch.nn.Module, opt_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
+                    lr_args: tuple = (1, 1)):
+    """The optimizer the engine builds for `model` from the `Optimizer` block
+    (`grad_clip` taken out): the model's `frozen_patterns`, its
+    `optimizer_overrides` after the config's `param_group` (a config group
+    wins on first match, JAX `engine.py:310-313`), and the depth that
+    `layerwise_decay` counts."""
+    num_layers = int(model_cfg.get("depth", 0) or len(getattr(model, "blocks", ())))
+    if num_layers == 0 and (opt_cfg.get("layerwise_decay") or 0):
+        logger.warning("Optimizer.layerwise_decay is set but the model depth is unknown "
+                       "(num_layers=0): layer decay is a no-op")
+    frozen = list(model.frozen_patterns()) if hasattr(model, "frozen_patterns") else []
+    overrides = list(model.optimizer_overrides()) if hasattr(model, "optimizer_overrides") else []
+    if overrides:
+        opt_cfg = dict(opt_cfg, param_group=list(opt_cfg.get("param_group", []) or []) + overrides)
+    return build_optimizer(opt_cfg, dict(model.named_parameters()), frozen_patterns=frozen,
+                           num_layers=num_layers, lr_args=lr_args)
 
 
 class Engine:
@@ -161,17 +184,17 @@ class Engine:
         if "dtype" not in model_cfg and self.policy.compute_dtype != torch.float32:
             model_cfg["dtype"] = self.policy.compute_dtype
         self.model = build_model(model_cfg)
-        for hook in ("param_transforms", "optimizer_overrides"):
-            if hasattr(self.model, hook):
-                raise NotImplementedError(f"model {model_cfg.get('name')} has {hook}, which the "
-                                          "port's engine does not handle yet")
         ema_map = list(self.model.ema_map()) if hasattr(self.model, "ema_map") else []
+        transforms = (list(self.model.param_transforms())
+                      if hasattr(self.model, "param_transforms") else [])
         init_module(self.model, torch.Generator().manual_seed(self.seed))
         for src, dst, _ in ema_map:  # each target starts as its online tower (JAX :319-322)
             self.model.get_submodule(dst).load_state_dict(
                 self.model.get_submodule(src).state_dict())
         if self.pretrained_model:
             self._load_pretrained(ema_map)
+        # once on the fresh or pretrained parameters (JAX :405-416), before they move
+        apply_param_transforms(param_transforms_of(self.model, transforms))
         self.model.to(self.device)
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info(f"model {model_cfg.get('name')}: {n_params / 1e6:.2f}M params, "
@@ -187,13 +210,7 @@ class Engine:
         if grad_clip_cfg:
             self.grad_clip = ClipGradByGlobalNorm(**{k: v for k, v in grad_clip_cfg.items()
                                                      if k != "name"})
-        num_layers = int(model_cfg.get("depth", 0) or len(getattr(self.model, "blocks", ())))
-        if num_layers == 0 and (opt_cfg.get("layerwise_decay") or 0):
-            logger.warning("Optimizer.layerwise_decay is set but the model depth is unknown "
-                           "(num_layers=0): layer decay is a no-op")
-        frozen = list(self.model.frozen_patterns()) if hasattr(self.model, "frozen_patterns") else []
-        self.optimizer = build_optimizer(opt_cfg, dict(self.model.named_parameters()),
-                                         frozen_patterns=frozen, num_layers=num_layers,
+        self.optimizer = model_optimizer(self.model, opt_cfg, model_cfg,
                                          lr_args=(self.epochs, spe, self.global_batch_size))
         logger.info(f"optimizer groups: {self.optimizer.describe()}")
 
@@ -220,7 +237,9 @@ class Engine:
                                         accum_steps=self.accum_steps,
                                         full_ema_decay=self.full_ema_decay,
                                         ema_pairs=ema_pairs_of(self.model, ema_map,
-                                                               self.total_steps))
+                                                               self.total_steps),
+                                        param_transforms=param_transforms_of(self.model,
+                                                                             transforms))
         topk = sorted({k for m in self.metric_fns for k in m.topk}) or [1]
         self.eval_metrics_step = EvalMetricsStep(topk)
         self.eval_metrics_step_ema = (EvalMetricsStep(topk, use_ema=True)

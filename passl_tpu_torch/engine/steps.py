@@ -8,14 +8,17 @@ gradient when loss scaling is on), the full-model EMA, and the metrics `lr`,
 `grad_norm` and the loss dict. With a criterion the model maps images to
 logits (classification); without one (the SSL methods, `steps.py:96-100` of
 the JAX package) `model(batch, generator=...)` returns the loss dict itself,
-and after the optimizer step the EMA pairs (`ema_pairs`, a momentum
-encoder's target tower following its online tower) move in f32 with the
-momentum of the step before the increment. `param_transforms` are not
-ported.
+and after the optimizer step a model's `param_transforms` (`param_transforms`,
+e.g. SwAV's prototypes l2-normalized) rewrite their parameters in place in
+f32, then the EMA pairs (`ema_pairs`, a momentum encoder's target tower
+following its online tower) move in f32 with the momentum of the step before
+the increment (JAX `steps.py:178-190`). A non-finite step under loss scaling
+does neither, and keeps parameters, optimizer state and buffers as they were.
 """
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,6 +97,24 @@ def apply_ema_pairs(pairs: Sequence[EmaPair], step: int) -> None:
         torch._foreach_add_(dst, src, alpha=1.0 - m)
 
 
+ParamTransform = Tuple[torch.Tensor, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def param_transforms_of(model: torch.nn.Module,
+                        transforms: Sequence[tuple]) -> List[ParamTransform]:
+    """A model's `param_transforms()`, [(regex, fn)] over dotted names ->
+    [(parameter, fn)] for every parameter each regex matches, in order."""
+    named = list(model.named_parameters())
+    return [(p, fn) for pat, fn in transforms for name, p in named if re.search(pat, name)]
+
+
+@torch.no_grad()
+def apply_param_transforms(transforms: Sequence[ParamTransform]) -> None:
+    """p <- fn(p) in place, fn taking and returning f32."""
+    for p, fn in transforms:
+        p.copy_(fn(p.float()))
+
+
 class TrainStep:
     """`step(state, batch) -> metrics`: one optimizer step on `batch` (images
     NHWC and labels, hard or soft, or with `criterion=None` the model's own
@@ -104,7 +125,8 @@ class TrainStep:
                  grad_clip: Optional[Callable] = None, scaler: Optional[GradScaler] = None,
                  accum_steps: int = 1,
                  full_ema_decay: Optional[Callable[[int], float]] = None,
-                 ema_pairs: Sequence[EmaPair] = ()):
+                 ema_pairs: Sequence[EmaPair] = (),
+                 param_transforms: Sequence[ParamTransform] = ()):
         self.lr_fn = lr_fn
         self.criterion = criterion
         self.grad_clip = grad_clip
@@ -112,6 +134,7 @@ class TrainStep:
         self.accum_steps = accum_steps
         self.full_ema_decay = full_ema_decay
         self.ema_pairs = list(ema_pairs)
+        self.param_transforms = list(param_transforms)
 
     def _loss(self, model, batch, generator, i: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         acc = self.accum_steps
@@ -162,6 +185,7 @@ class TrainStep:
         lr = self.lr_fn(state.step)
         if finite:  # a non-finite step under loss scaling keeps params and moments
             state.optimizer.step(lr, state.step)
+            apply_param_transforms(self.param_transforms)
             apply_ema_pairs(self.ema_pairs, state.step)
         elif buffers:
             with torch.no_grad():

@@ -1,4 +1,4 @@
-"""BYOL: bootstrap your own latent (counterpart of `passl_tpu/models/byol.py:28-93`).
+"""BYOL and SimSiam (counterpart of `passl_tpu/models/byol.py:28-124`).
 
 An online tower (backbone + projector neck) and a predictor learn to
 regress the target tower's projection of the other view; the target tower
@@ -14,6 +14,12 @@ plain `ops.augment.byol_device_augment` on them with draws from the
 `generator` the train step hands it (the train state's), then casts to the
 compute dtype. Module names follow the flax model's (`online`, `target`,
 `predictor`, each tower's `backbone` and `neck`).
+
+SimSiam has one `encoder` (backbone and projector neck) and a `predictor`,
+and no momentum tower: the loss is 0.5 (neg_cos(p1, z2) + neg_cos(p2, z1))
+in f32 with the projections z detached. The encoder runs on each view in a
+call of its own, so each view's BatchNorms take their own batch statistics
+and the running statistics move twice a step, view 1 first.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Any, Optional, Union
 import torch
 from torch import nn
 
-from ..core.amp import resolve_dtype
+from ..core.amp import at_least_f32, resolve_dtype
 from ..nn.norm import l2_normalize
 from ..ops.augment import byol_device_augment
 from .base import register_model, two_views
@@ -32,10 +38,17 @@ DtypeLike = Union[str, torch.dtype]
 
 
 def byol_regression_loss(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """2 - 2 cos(p, z), the mean over the batch, in f32."""
-    p = l2_normalize(p.float(), dim=-1)
-    z = l2_normalize(z.float(), dim=-1)
+    """2 - 2 cos(p, z), the mean over the batch, in f32 (f64 for f64 inputs)."""
+    p = l2_normalize(at_least_f32(p), dim=-1)
+    z = l2_normalize(at_least_f32(z), dim=-1)
     return 2.0 - 2.0 * torch.mean(torch.sum(p * z, dim=-1))
+
+
+def neg_cosine(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """-cos(p, z) with z detached, the mean over the batch, in f32 (f64 for f64 inputs)."""
+    p = l2_normalize(at_least_f32(p), dim=-1)
+    z = l2_normalize(at_least_f32(z.detach()), dim=-1)
+    return -torch.mean(torch.sum(p * z, dim=-1))
 
 
 @register_model
@@ -83,3 +96,24 @@ class BYOL(nn.Module):
         # the sum over both view orders, as the reference's L2 head
         loss = byol_regression_loss(p1, t2) + byol_regression_loss(p2, t1)
         return {"loss": loss}
+
+
+@register_model
+class SimSiam(nn.Module):
+    """batch (view1, view2) [N, H, W, C] -> {"loss": scalar f32}."""
+
+    def __init__(self, backbone: Any = None, neck: Any = None, predictor: Any = None,
+                 dtype: DtypeLike = torch.float32):
+        super().__init__()
+        dtype = resolve_dtype(dtype)
+        self.encoder = Encoder(backbone, neck, dtype)
+        self.predictor = build_submodule(predictor, dtype=dtype,
+                                         in_channels=self.encoder.neck.out_channels)
+
+    def forward(self, batch, generator: Optional[torch.Generator] = None) -> dict:
+        v1, v2 = two_views(batch)
+        z1 = self.encoder(v1)
+        z2 = self.encoder(v2)
+        p1 = self.predictor(z1)
+        p2 = self.predictor(z2)
+        return {"loss": 0.5 * (neg_cosine(p1, z2) + neg_cosine(p2, z1))}

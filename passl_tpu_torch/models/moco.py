@@ -47,6 +47,29 @@ def info_nce_logits(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
     return torch.cat([l_pos, l_neg], dim=1) / temperature
 
 
+def init_queue(queue: torch.Tensor, queue_ptr: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> None:
+    """A queue of keys [dim, K] as l2-normalized normal columns, the pointer at 0."""
+    with torch.no_grad():
+        queue.normal_(generator=generator)
+        queue.copy_(l2_normalize(queue, dim=0))
+        queue_ptr.zero_()
+
+
+@torch.no_grad()
+def enqueue(queue: torch.Tensor, queue_ptr: torch.Tensor, k: torch.Tensor) -> None:
+    """Write the keys k [N, dim] into the queue's columns at the pointer, as
+    JAX's `dynamic_update_slice` writes them (the start clamped to K - N),
+    and advance the pointer by N mod K."""
+    n, size = k.shape[0], queue.shape[1]
+    if n > size:
+        raise ValueError(f"a batch of {n} keys does not fit a queue of K={size}")
+    start = torch.clamp(queue_ptr, max=size - n)
+    cols = start + torch.arange(n, device=k.device)
+    queue.index_copy_(1, cols, k.T.to(queue.dtype))
+    queue_ptr.copy_((queue_ptr + n) % size)
+
+
 def shuffle_permutation(n: int, generator: torch.Generator, device: torch.device) -> torch.Tensor:
     """The shuffle-BN permutation of a key batch of n images."""
     return torch.randperm(n, generator=generator, device=device)
@@ -67,10 +90,7 @@ class MoCo(nn.Module):
         self.register_buffer("queue_ptr", torch.zeros((), dtype=torch.long))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        with torch.no_grad():
-            self.queue.normal_(generator=generator)
-            self.queue.copy_(l2_normalize(self.queue, dim=0))
-            self.queue_ptr.zero_()
+        init_queue(self.queue, self.queue_ptr, generator)
 
     def ema_map(self) -> list:
         return [("encoder_q", "encoder_k", {"momentum": self.m})]
@@ -98,19 +118,8 @@ class MoCo(nn.Module):
         loss = -torch.mean(logp[:, 0])
         acc1 = torch.mean((torch.argmax(logits, dim=-1) == 0).float())
         if self.training:
-            self._enqueue(k)
+            enqueue(self.queue, self.queue_ptr, k)
         return {"loss": loss, "acc1": acc1}
-
-    @torch.no_grad()
-    def _enqueue(self, k: torch.Tensor) -> None:
-        n = k.shape[0]
-        if n > self.K:
-            raise ValueError(f"MoCo: a batch of {n} keys does not fit a queue of K={self.K}")
-        # dynamic_update_slice's clamp: the n columns end at K at the latest
-        start = torch.clamp(self.queue_ptr, max=self.K - n)
-        cols = start + torch.arange(n, device=k.device)
-        self.queue.index_copy_(1, cols, k.T.to(self.queue.dtype))
-        self.queue_ptr.copy_((self.queue_ptr + n) % self.K)
 
 
 @register_model(name="MoCoV2")

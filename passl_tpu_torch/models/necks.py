@@ -1,9 +1,10 @@
-"""Projection necks of the SSL methods (counterpart of `passl_tpu/models/necks.py:23-112`).
+"""Projection necks of the SSL methods (counterpart of `passl_tpu/models/necks.py:23-134`).
 
 `LinearNeck` (fc), `NonLinearNeckV1` (fc-relu-fc, MoCo v2), `NonLinearNeckV2`
 (fc-bn-relu-fc, BYOL's projector and predictor), `NonLinearNeckV3`
 (fc-bn-relu-fc-bn, the last BN without scale or bias) and `NonLinearNeckfc3`
-(fc-bn-relu twice, then fc-bn, no Dense biases: SimCLR's projector). Each takes a 4-D NHWC
+(fc-bn-relu twice, then fc-bn, no Dense biases: SimCLR's projector) and
+`SwAVNeck` (fc-bn-relu, fc, l2-normalize). Each takes a 4-D NHWC
 feature map, which it averages over H and W when `with_avg_pool` says so,
 or [N, C] features. Flax infers the input width; a torch module needs it at
 construction, so each neck takes `in_channels` (the method passes the
@@ -11,7 +12,7 @@ backbone's `out_channels`, and a neck's own `out_channels` to the next).
 Dense layers are lecun-normal with zero bias, at `dtype`; the BatchNorms are
 `nn.norm.BatchNorm` (flax's semantics, momentum 0.9, epsilon 1e-5).
 
-`SwAVNeck`, `MLP2d` and `DenseCLNeck` wait for their methods.
+`MLP2d` and `DenseCLNeck` wait for their methods.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from torch import nn
 
 from ..core.amp import resolve_dtype
 from ..nn.layers import Dense
-from ..nn.norm import BatchNorm
+from ..nn.norm import BatchNorm, l2_normalize
 from .base import register_model
 
 DtypeLike = Union[str, torch.dtype]
@@ -126,3 +127,30 @@ class NonLinearNeckfc3(nn.Module):
         x = F.relu(self.bn1(self.fc1(x)))
         x = F.relu(self.bn2(self.fc2(x)))
         return self.bn3(self.fc3(x))
+
+
+@register_model
+class SwAVNeck(nn.Module):
+    """fc-bn-relu, then fc, then l2-normalize (SwAV's projector); the Dense
+    layers with bias. `hid_channels` 0 skips the hidden layer, and
+    `with_l2norm` False the normalization."""
+
+    def __init__(self, in_channels: int, hid_channels: int, out_channels: int,
+                 with_avg_pool: bool = True, with_l2norm: bool = True,
+                 dtype: DtypeLike = torch.float32):
+        super().__init__()
+        dtype = resolve_dtype(dtype)
+        self.with_avg_pool = with_avg_pool
+        self.with_l2norm = with_l2norm
+        self.out_channels = out_channels
+        if hid_channels > 0:
+            self.fc1 = Dense(in_channels, hid_channels, dtype)
+            self.bn1 = BatchNorm(hid_channels, dtype=dtype)
+        self.fc2 = Dense(hid_channels if hid_channels > 0 else in_channels, out_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _pool(x, self.with_avg_pool)
+        if hasattr(self, "fc1"):
+            x = F.relu(self.bn1(self.fc1(x)))
+        x = self.fc2(x)
+        return l2_normalize(x, dim=-1) if self.with_l2norm else x

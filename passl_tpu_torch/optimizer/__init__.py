@@ -1,14 +1,21 @@
 """Param-group optimizer and its factory.
 
 Counterpart of `passl_tpu/optimizer/{__init__,base,transforms}.py`. Group
-membership is decided once from each parameter's dotted name
-(`blocks.3.attn.qkv.weight`) by the JAX package's rules: `param_group`
-regexes (first match wins, with `lr_scale`, `weight_decay`, `lr_func` and
-`freeze_steps`), `no_weight_decay_name` regexes, `one_dim_param_no_weight_decay`
-by `ndim`, `layerwise_decay` through `layer_id_from_path`, and the frozen
-group. Before every step each group's lr is set to its schedule's value at
-the global step times its `lr_scale` (zero while `step < freeze_steps`), as
-`ParamGroupOptimizer.apply` computes it.
+membership is decided once for each parameter by the JAX package's rules:
+`param_group` regexes (first match wins, with `lr_scale`, `weight_decay`,
+`lr_func` and `freeze_steps`), `no_weight_decay_name` regexes,
+`one_dim_param_no_weight_decay` by `ndim`, `layerwise_decay` through
+`layer_id_from_path`, and the frozen group. The JAX builder matches a
+config's regexes against flax paths (`prototypes/kernel`), so here a
+config's regex (`param_group`, `no_weight_decay_name`, the `Optimizer`
+block's `frozen_patterns`) selects a parameter when it matches either its
+dotted name (`prototypes.weight`) or its flax path (`utils.convert.flax_path`);
+the patterns a model hands over (`frozen_patterns=`, and the
+`optimizer_overrides` the engine appends to `param_group`) are dotted.
+Before every step each group's lr is set to its schedule's value at the
+global step times its `lr_scale` (zero while `step < freeze_steps`), as
+`ParamGroupOptimizer.apply` computes it; a frozen-for-now group still runs
+its rule at lr 0, so its momentum accumulates over the freeze as in JAX.
 
 Rules: `AdamW` (decoupled weight decay, the JAX rule's
 `p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`) runs as
@@ -28,6 +35,8 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
+from ..utils.convert import flax_path
+
 LrFn = Callable[[int], float]
 RULES = ("AdamW", "Momentum", "MomentumLARS", "LarsMomentumOptimizer", "Frozen")
 
@@ -44,6 +53,10 @@ class Group:
 
 def match_any(path: str, patterns: Sequence[str]) -> bool:
     return any(re.search(pat, path) for pat in patterns)
+
+
+def _match_either(names: Sequence[str], patterns: Sequence[str]) -> bool:
+    return any(match_any(n, patterns) for n in names)
 
 
 def layer_id_from_path(path: str, num_layers: int) -> int:
@@ -208,7 +221,8 @@ def build_optimizer(config: Dict[str, Any], named_params: Mapping[str, torch.nn.
     one_dim_no_wd = bool(cfg.pop("one_dim_param_no_weight_decay", False))
     layerwise_decay = cfg.pop("layerwise_decay", None)
     custom_groups = list(cfg.pop("param_group", []) or [])
-    frozen_patterns = list(frozen_patterns or []) + list(cfg.pop("frozen_patterns", []) or [])
+    frozen_patterns = list(frozen_patterns or [])
+    config_frozen = list(cfg.pop("frozen_patterns", []) or [])
 
     group_lr_fns: Dict[str, Any] = {}
     for cg in custom_groups:
@@ -236,19 +250,20 @@ def build_optimizer(config: Dict[str, Any], named_params: Mapping[str, torch.nn.
 
     assignment: Dict[str, int] = {}
     for path, param in named_params.items():
-        if frozen_patterns and match_any(path, frozen_patterns):
+        names = (path, flax_path(path, param.dim()))  # a config regex matches either
+        if match_any(path, frozen_patterns) or _match_either(names, config_frozen):
             assignment[path] = get_group("frozen", 0.0, 1.0)
             continue
         wd, lr_scale, freeze_steps, lr_fn, gname = base_wd, 1.0, 0, None, "default"
         for cg in custom_groups:  # custom regex groups take precedence
-            if match_any(path, [cg["name"]]):
+            if _match_either(names, [cg["name"]]):
                 wd = float(cg.get("weight_decay", base_wd))
                 lr_scale = float(cg.get("lr_scale", 1.0))
                 freeze_steps = int(cg.get("freeze_steps", 0))
                 lr_fn = group_lr_fns.get(cg["name"])
                 gname = cg["name"]
                 break
-        if no_wd_names and match_any(path, no_wd_names):
+        if no_wd_names and _match_either(names, no_wd_names):
             wd = 0.0
             gname += "|no_wd"
         if one_dim_no_wd and param.dim() <= 1:

@@ -6,7 +6,8 @@ fine-tune config can load it with `Global.pretrained_model=`. It reads a
 checkpoint the port's trainer wrote (`<output_dir>/<prefix>.pt`, or the
 file a `Global.checkpoint` names; a JAX `.ckpt` is refused) and writes a
 torch `state_dict` of the entries under `--prefix`, a dotted module path:
-`backbone` (SimCLR), `online.backbone` (BYOL), `encoder_q.backbone` (MoCo).
+`backbone` (SimCLR, SwAV), `online.backbone` (BYOL, MoCo-BYOL),
+`encoder_q.backbone` (MoCo), `encoder.backbone` (SimSiam).
 The BatchNorm running statistics travel with the parameters (the JAX
 tool's `batch_stats` bundling): a frozen backbone normalizing with fresh
 statistics gives useless features.

@@ -10,6 +10,9 @@ The leaves of another variable collection (`collections`, e.g. MoCo's `ssl`
 with its `queue` and `queue_ptr`) land on the buffers of the same names,
 their layouts and dtypes kept as the buffers have them. Every flax leaf must land on a torch parameter or buffer of the same shape,
 and every entry of the model's `state_dict` must be filled.
+
+`flax_path` goes the other way on a parameter's name: the path the JAX
+package's optimizer matches a config's regexes against.
 """
 from __future__ import annotations
 
@@ -57,6 +60,22 @@ def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
     elif leaf == "scale":
         leaf = "weight"
     return ".".join([*modules, leaf]), arr
+
+
+def flax_path(name: str, ndim: int) -> str:
+    """The flax path of a port parameter (the inverse of `_torch_name` on
+    parameters): `blocks.3.attn.qkv.weight` (2-D) -> `blocks_3/attn/qkv/kernel`;
+    a 2-D or 4-D `weight` is a Dense or Conv `kernel`, a 1-D one a norm's `scale`."""
+    *modules, leaf = name.split(".")
+    path: list[str] = []
+    for m in modules:
+        if m.isdigit() and path:
+            path[-1] += f"_{m}"
+        else:
+            path.append(m)
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "/".join([*path, leaf])
 
 
 def flax_to_torch(params: Mapping, model: torch.nn.Module,

@@ -6,7 +6,7 @@
 # Validates aug -> SSL loss -> optimizer -> EMA / queue -> extract -> probe as
 # a learning system, through the port's CLIs alone.
 #
-#   tests/e2e/run_learning_check_torch.sh simclr|mocov2|byol [output dir]
+#   tests/e2e/run_learning_check_torch.sh simclr|mocov2|byol|simsiam|mocobyol|swav [output dir]
 #
 # The extract step loads the backbone into the probe config's model first
 # and fails if any backbone entry would keep its random init.
@@ -20,7 +20,10 @@ case "$METHOD" in
   simclr) CFG=tests/e2e/simclr_structured.yaml; PREFIX=backbone ;;
   mocov2) CFG=tests/e2e/mocov2_structured.yaml; PREFIX=encoder_q.backbone ;;
   byol)   CFG=tests/e2e/byol_structured.yaml;   PREFIX=online.backbone ;;
-  *) echo "unknown method $METHOD (simclr | mocov2 | byol)"; exit 2 ;;
+  simsiam) CFG=tests/e2e/simsiam_structured.yaml; PREFIX=encoder.backbone ;;
+  mocobyol) CFG=tests/e2e/mocobyol_structured.yaml; PREFIX=online.backbone ;;
+  swav)   CFG=tests/e2e/swav_structured.yaml;   PREFIX=backbone ;;
+  *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav)"; exit 2 ;;
 esac
 rm -rf "$OUT"
 mkdir -p "$OUT"

@@ -7,7 +7,8 @@ CIFAR and conv7 stems) and `NonLinearNeckV2` from converted weights
 (forward, gradients, `batch_stats`); `l2_normalize`, the regression loss and
 the EMA momentum schedule; `MomentumLARS` against the JAX rule on 2-D, 1-D
 and all-zero tensors; the frozen group against the JAX optimizer's; the
-refusals; and the slice as a whole: the tiny BYOL of
+refusals; a model's `param_transforms` and `optimizer_overrides` through the
+engine; and the slice as a whole: the tiny BYOL of
 configs/byol/byol_r18_synthetic.yaml (16 x 16 images, batch 8, necks of 64)
 tracks the JAX engine for 4 steps from the converted init on the JAX
 loader's batches. A test marked `cuda` runs the tiny BYOL's train step on
@@ -674,19 +675,59 @@ def test_submodule_builder_refuses_unknown_keys_as_jax_does():
     assert neck.fc.weight.shape == (2, 8)
 
 
-class _WithTransforms(BYOL):
-    def param_transforms(self):
-        return []
+class _WithHooks(BYOL):
+    """BYOL with a transform that adds 1 to the predictor's last bias, and
+    overrides for the predictor and the online neck."""
+
+    @staticmethod
+    def param_transforms():
+        return [(r"^predictor\.fc2\.bias$", lambda b: b + 1.0)]
+
+    @staticmethod
+    def optimizer_overrides():
+        return [{"name": r"^predictor\.", "lr_scale": 0.5},
+                {"name": r"^online\.neck\.", "freeze_steps": 3}]
 
 
-def test_engine_refuses_param_transforms(tmp_path):
+@pytest.mark.parametrize("fp16", [False, True], ids=["applied-step", "non-finite-fp16-step"])
+def test_engine_applies_param_transforms_and_optimizer_overrides(tmp_path, fp16):
+    """The transform runs once at init and after every applied optimizer
+    step (before the EMA), and not on a non-finite fp16 step; the overrides
+    come after the config's param_group, so a config group wins on first
+    match."""
     from passl_tpu_torch.models.base import MODELS
 
-    if "_ByolWithTransforms" not in MODELS:
-        MODELS.register(_WithTransforms, name="_ByolWithTransforms")
-    with pytest.raises(NotImplementedError, match="param_transforms"):
-        Engine(_config(tmp_path, *TINY, "Model.name=_ByolWithTransforms"), mode="train",
-               device="cpu")
+    if "_ByolWithHooks" not in MODELS:
+        MODELS.register(_WithHooks, name="_ByolWithHooks")
+    overrides = ["Model.name=_ByolWithHooks",
+                 "Optimizer.param_group=[{'name': '^predictor\\.fc1\\.', 'lr_scale': 2.0}]"]
+    if fp16:
+        overrides += ["FP16.dtype=float16", "FP16.GradScaler={'init_loss_scaling': 1.0e38}"]
+    e = Engine(_config(tmp_path, *TINY, *overrides), mode="train", device="cpu")
+    groups = {n: e.optimizer.group_of(n) for n in ("predictor.fc1.weight",
+                                                    "predictor.fc2.weight",
+                                                    "online.neck.fc1.weight",
+                                                    "online.backbone.conv1.weight")}
+    assert (groups["predictor.fc1.weight"].name, groups["predictor.fc1.weight"].lr_scale) == \
+        ("^predictor\\.fc1\\.", 2.0)
+    assert (groups["predictor.fc2.weight"].name, groups["predictor.fc2.weight"].lr_scale) == \
+        ("^predictor\\.", 0.5)
+    assert groups["online.neck.fc1.weight"].freeze_steps == 3
+    assert groups["online.backbone.conv1.weight"].name.startswith("default")
+    bias = e.model.predictor.fc2.bias
+    assert torch.equal(bias, torch.ones_like(bias))  # zero init, then the transform once
+    batch = next(iter(e.train_dataloader))
+    e.train_step(e.state, to_device(e.prepare_batch(batch), e.device))
+    assert e.state.step == 1
+    if fp16:  # the step was skipped: nothing moved, the transform did not run
+        assert e.state.scaler_state.scale < 1.0e38
+        assert torch.equal(bias, torch.ones_like(bias))
+    else:
+        buf = e.optimizer.torch_optimizer.state[bias]["momentum_buffer"]
+        glr = e.optimizer.group_lr(e.optimizer.group_of("predictor.fc2.bias"), e.lr_fn(0), 0)
+        assert buf.abs().max() > 0 and glr > 0
+        torch.testing.assert_close(bias.detach(), (1.0 - glr * buf) + 1.0)
+    e.close()
 
 
 # ---------------------------------------------------------------- card only

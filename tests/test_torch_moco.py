@@ -341,7 +341,7 @@ def test_moco_enqueue_clamps_as_dynamic_update_slice_does():
         k = torch.nn.functional.normalize(torch.randn(4, 16, generator=torch.Generator()
                                                       .manual_seed(step)), dim=1)
         before = m.queue.clone()
-        m._enqueue(k)
+        port_moco.enqueue(m.queue, m.queue_ptr, k)
         queue = jax.lax.dynamic_update_slice(queue, jnp.asarray(k.numpy()).T, (0, ptr))
         ptr = (ptr + 4) % 10
         np.testing.assert_array_equal(m.queue.numpy(), np.asarray(queue))
@@ -350,7 +350,7 @@ def test_moco_enqueue_clamps_as_dynamic_update_slice_does():
     # the third write starts at 8 and is clamped to K - N = 6: never wraps round
     assert written == [[0, 1, 2, 3], [4, 5, 6, 7], [6, 7, 8, 9], [2, 3, 4, 5]]
     with pytest.raises(ValueError, match="does not fit"):
-        m._enqueue(torch.zeros(11, 16))
+        port_moco.enqueue(m.queue, m.queue_ptr, torch.zeros(11, 16))
 
 
 def test_moco_eval_neither_shuffles_nor_enqueues():
