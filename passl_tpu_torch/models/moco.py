@@ -61,12 +61,23 @@ def enqueue(queue: torch.Tensor, queue_ptr: torch.Tensor, k: torch.Tensor) -> No
     """Write the keys k [N, dim] into the queue's columns at the pointer, as
     JAX's `dynamic_update_slice` writes them (the start clamped to K - N),
     and advance the pointer by N mod K."""
-    n, size = k.shape[0], queue.shape[1]
+    enqueue_pairs(queue_ptr, [(queue, k)])
+
+
+@torch.no_grad()
+def enqueue_pairs(queue_ptr: torch.Tensor, pairs) -> None:
+    """`enqueue` for queues [dim, K] of one length that share one pointer
+    (DenseCL's two): each (queue, keys [N, dim]) pair is written at the same
+    clamped start, then the pointer advances once, by N mod K."""
+    n, size = pairs[0][1].shape[0], pairs[0][0].shape[1]
     if n > size:
         raise ValueError(f"a batch of {n} keys does not fit a queue of K={size}")
+    if any(k.shape[0] != n or queue.shape[1] != size for queue, k in pairs):
+        raise ValueError("queues sharing a pointer need one length K and one batch N")
     start = torch.clamp(queue_ptr, max=size - n)
-    cols = start + torch.arange(n, device=k.device)
-    queue.index_copy_(1, cols, k.T.to(queue.dtype))
+    cols = start + torch.arange(n, device=queue_ptr.device)
+    for queue, k in pairs:
+        queue.index_copy_(1, cols, k.T.to(queue.dtype))
     queue_ptr.copy_((queue_ptr + n) % size)
 
 

@@ -69,6 +69,27 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride)
 
 
+class Conv1x1(nn.Module):
+    """flax `Conv(out_channels, (1, 1), dtype=...)` over the last axis of a
+    channels-last tensor ([N, H, W, C] or [N, S, C]): weight OIHW
+    `[out, in, 1, 1]` in f32 (lecun-normal, as flax's kernel HWIO converts)
+    and a zero bias, computed at `dtype` as one product over the channels."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        tinit.lecun_normal_(self.weight, generator=generator)
+        tinit.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.flatten(1).to(dt), self.bias.to(dt))
+
+
 class LayerNorm(nn.LayerNorm):
     """flax `LayerNorm(dtype=...)`: statistics and affine in f32, output at `dtype`."""
 
