@@ -40,7 +40,10 @@ Run from the repo root:  python3 chip_smoke.py
    dQ backward kernels against their plain versions at the ViT family's
    shapes (ViT-B/16 at 32 and 128 images in bf16 and f32, ViT-B/32, ViT-B/16
    at 384, ViT-L/16, ViT-H/14, ViT-g/14, MoCo v3 ViT-S, 65 tokens, 4,096
-   tokens, one f16 case), with q, k, v read as views of one qkv tensor as
+   tokens, one f16 case, and the shapes of the ViT family's other paths in
+   bf16: the MAE-B/16 decoder (256, 197, 16, 32), ViT-L/16 at 384 (32, 577,
+   16, 64) and DeiT-B distilled (32, 198, 12, 64), each also timed against
+   its plain versions and SDPA), with q, k, v read as views of one qkv tensor as
    the model hands them, logs the tensor-core kernels' registers, shared
    memory and blocks an SM, checks that all three kernels are bitwise the
    same on a second launch, and times them at ViT-B/16's 128 images against
@@ -194,7 +197,38 @@ Run from the repo root:  python3 chip_smoke.py
    combined queries twice a step; the EMA rule (cosine from 0.99); the target
    has no optimizer state; the statistics of both towers and the predictor
    moved; resume; the first step card vs CPU at 8 pairs, as DenseCL's.
-23. Prints the card line, a JSON line of the eight kernels' results, and
+23. Serves DeiT-B distilled at 224 (198 tokens) from
+   configs/classification/deit_base_patch16_224_in1k.yaml with the model
+   named DeiT_base_distilled_patch16_224, as ViT-B/16 is served: 12 flash
+   launches per forward, and the einsum path on the same weights in bf16
+   (cosine >= 0.999), at softmax_dtype=float32 (>= 0.9999) and in f32.
+24. Trains ViT-L/16 at 384 (577 tokens) from
+   configs/classification/vit_large_patch16_384_ft_in1k.yaml with
+   Model.attn_impl=flash, bf16, 32 images: the first step's gradients under
+   remat_policy nothing, dots_no_batch and dots against no remat from one
+   init, batch and generator state (drop path 0.1), cosine >= 0.99999 and
+   whether they are bitwise, each run's peak memory (nothing and
+   dots_no_batch below no remat) and flash launches (the forward's doubled
+   under remat); then 4 steps of the config (dots_no_batch): 48 forward, 24
+   dK/dV and 24 dQ launches a step, step time, images/s, a profiled step.
+25. Trains MoCo v3 ViT-B/16 the same way as the SSL phases on
+   configs/mocov3/mocov3_vit_base_in1k.yaml with Model.encoder.attn_impl=flash:
+   128 pairs, AdamW, bf16, 8 steps. Checks: the EMA rule after every step on
+   every momentum parameter, the inert predictor's included; the momentum
+   tower has no optimizer state; with stop_grad_conv1 the patch embedding
+   moves by AdamW's decay alone and its bias not at all; loss finite, acc1 in
+   [0, 1]; 48 forward, 24 dK/dV and 24 dQ launches a step; the flash path's
+   first-step gradients against the einsum path's (cosine >= 0.999); resume;
+   the first step card vs CPU at 4 pairs in f32 and f64 (einsum path), the
+   card's f32 error from f64 at most 20 times the CPU's.
+26. Trains MAE ViT-B/16 on configs/mae/mae_vit_base_in1k.yaml with
+   Model.attn_impl=flash: 256 images, AdamW, bf16, 8 steps. Checks: every
+   mask holds 147 of 196 patches and every ids_restore is a permutation; the
+   encoder's 50 tokens take einsum (the JAX package's warning), the decoder's
+   197 the flash kernels, 8 launches of each a step; loss finite; resume; the
+   first step card vs CPU at 4 images in f32 and f64 with one noise handed to
+   both devices, the card's f32 error from f64 at most twice the CPU's.
+27. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -204,12 +238,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import tempfile
 import threading
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -221,7 +257,8 @@ from passl_tpu_torch.data.loader import PREFETCH_THREAD
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
-from passl_tpu_torch.models import moco
+from passl_tpu_torch.models import mae, moco
+from passl_tpu_torch.nn.layers import Attention
 from passl_tpu_torch.nn.norm import SplitBatchNorm
 from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
                                          simclr_draws)
@@ -316,6 +353,13 @@ VIT_TRAIN_BATCH = 128  # the recipe's per-card batch: 4,096 over 32 cards
 # the resolver's shortest flash sequence; 4,096 tokens, where `auto` turns
 # to flash; ViT-L/16 in f16
 FLASH_TIMED = (128, 197, 12, 64)  # ViT-B/16 training: timed in bf16 and f32
+# the shapes the ViT family's other paths hand the kernels, each timed in bf16:
+# the MAE-B/16 decoder (256 images, 197 tokens, 16 heads of 32), ViT-L/16 at
+# 384 (32 images, 577 tokens) and DeiT-B distilled (198 tokens)
+MAE_DECODER_SHAPE = (256, 197, 16, 32)
+VITL384_SHAPE = (32, 577, 16, 64)
+DEIT_SHAPE = (32, 198, 12, 64)
+FLASH_PATH_TIMED = (MAE_DECODER_SHAPE, VITL384_SHAPE, DEIT_SHAPE)
 FLASH_CASES = [
     ((32, 197, 12, 64), torch.bfloat16), ((32, 197, 12, 64), torch.float32),
     (FLASH_TIMED, torch.bfloat16), (FLASH_TIMED, torch.float32),
@@ -324,6 +368,7 @@ FLASH_CASES = [
     ((2, 257, 16, 104), torch.bfloat16), ((16, 197, 12, 32), torch.bfloat16),
     ((2, 65, 2, 32), torch.float32), ((2, 4096, 8, 64), torch.bfloat16),
     ((16, 197, 16, 64), torch.float16),
+    *((shape, torch.bfloat16) for shape in FLASH_PATH_TIMED),
 ]
 # m and l: f32 sums and maxima of the same products taken in another order
 STAT_TOL = 1e-5
@@ -688,7 +733,8 @@ def phase_flash() -> dict:
             again = flash_attention_fwd(q, k, v, scale)
             check(all(torch.equal(a, b) for a, b in zip((o, m, lsum), again)),
                   f"flash at {shape} {dtype}: two launches differ")
-            if shape == FLASH_TIMED:  # read q, k, v, write o, m, l; q k^T and p v
+            if shape == FLASH_TIMED or shape in FLASH_PATH_TIMED:
+                # read q, k, v, write o, m, l; q k^T and p v
                 rec.update(_time_pair(lambda: flash_attention_fwd(q, k, v, scale),
                                       lambda: flash_attention_fwd_ref(q, k, v, scale),
                                       *_flash_bytes_flops(shape, dtype, 4, 2, 2), dtype,
@@ -746,7 +792,7 @@ def phase_flash_bwd() -> dict:
                      flash_attention_dq(q, k, v, do, m, lsum, di, scale))
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"flash-bwd at {shape} {dtype}: two launches differ")
-            if shape == FLASH_TIMED:
+            if shape == FLASH_TIMED or shape in FLASH_PATH_TIMED:
                 # dK/dV reads q, k, v, do and m, l, di and writes dk, dv; it
                 # recomputes q k^T, then p^T do, do v^T and ds^T q. dQ reads
                 # the same and writes dq: q k^T, do v^T and ds k. The library
@@ -905,7 +951,7 @@ def phase_serve() -> int:
 
 
 def _serve_kernel_vs_einsum(tag: str, config: str, name: str, blocks: int, kernel,
-                            kernel_cfg: str) -> dict:
+                            kernel_cfg: str, common: tuple = ()) -> dict:
     """A model through export and Predictor on its kernel path (`kernel_cfg`)
     against its einsum path on the same weights (Global.seed), in the config's
     bf16 with its softmax_dtype, at softmax_dtype=float32, and in f32
@@ -920,8 +966,8 @@ def _serve_kernel_vs_einsum(tag: str, config: str, name: str, blocks: int, kerne
         for prec, overrides in (("bf16", ()), ("bf16, softmax f32", ("Model.softmax_dtype=float32",)),
                                 ("f32", ("FP16.enable=False", "Model.softmax_dtype=float32"))):
             d_k, d_p = os.path.join(tmp, "kernel"), os.path.join(tmp, "plain")
-            _export(config, d_k, kernel_cfg, *overrides)
-            _export(config, d_p, *overrides)
+            _export(config, d_k, kernel_cfg, *common, *overrides)
+            _export(config, d_p, *common, *overrides)
             fused, st_f, launches, prof_f = _serve(d_k, name, requests, kernel)
             check(launches == blocks * forwards,
                   f"{tag} {prec}: kernel launched {launches}x, want {blocks * forwards}")
@@ -1066,9 +1112,9 @@ def _cos(a: torch.Tensor, b: torch.Tensor) -> float:
     return (torch.dot(a, b) / (a.norm() * b.norm())).item()
 
 
-def _step_report(tag: str, engine: Engine, batch_size: int) -> dict:
+def _step_report(tag: str, engine: Engine, batch_size: int, steps: int = TRAIN_STEPS) -> dict:
     hist = engine.train_loop.history
-    check(len(hist) == TRAIN_STEPS, f"{tag}: {len(hist)} logged steps, want {TRAIN_STEPS}")
+    check(len(hist) == steps, f"{tag}: {len(hist)} logged steps, want {steps}")
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)), f"{tag}: non-finite loss in {losses}")
     steady = hist[1:]  # the first step pays for cuBLAS and allocator warm-up
@@ -1391,16 +1437,22 @@ class SSLSpec:
     # the yardstick of f32: where set, the card's f32 error from f64 (1 - gradient
     # cosine) at most this many times the CPU's; 1 (SimSiam, MoCo-BYOL, SwAV):
     # the card's f32 at least as close to f64 as the CPU's; 2 (DenseCL, PixPro,
-    # FastMoCo), as the two errors lie within 10% of each other there and which
-    # is the smaller flips with the rounding (on an H100 80GB HBM3 at 700 W:
+    # FastMoCo, MAE), as the two errors lie within 10% of each other there and
+    # which is the smaller flips with the rounding (on an H100 80GB HBM3 at 700 W:
     # DenseCL's card-vs-CPU 0.999726 against the CPU's f32-vs-f64 0.999760;
-    # PixPro's card f32-vs-f64 0.999766 against the CPU's 0.999783). Unset: the
-    # card's and the CPU's f32 must agree at least as well as the CPU's f32 and
-    # f64 (two f32 errors against one)
+    # PixPro's card f32-vs-f64 0.999766 against the CPU's 0.999783; MAE's card
+    # error 0.997 times the CPU's); 20 (MoCo v3, whose card error runs a few
+    # times the CPU's: at its spec). Unset: the card's and the CPU's f32 must
+    # agree at least as well as the CPU's f32 and f64 (two f32 errors against one)
     f32_error_ratio: float = 0.0
     views: int = 2  # crops of each image; `batch` counts pairs where there are 2, else images
     img: int = IMG  # the synthetic images' size (FastMoCo's config is CIFAR-sized)
-    convs: int = 11  # the stem's and layer4's convolutions (ResNet-50: 1 + 10; ResNet-18: 1 + 5)
+    # the weights whose lowest gradient cosine the first-step check names, and
+    # their count: by default the stem's and layer4's convolutions (ResNet-50:
+    # 1 + 10; ResNet-18: 1 + 5); where `watch` is set, the names it picks (a
+    # ViT's attn.qkv weights)
+    watched: int = 11
+    watch: Optional[Callable[[str], bool]] = None
 
 
 BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
@@ -1464,7 +1516,8 @@ def _ssl_first_batch(engine: Engine, device: str):
     loader = build_dataloader(dl, "Train", seed=engine.seed)
     loader.set_epoch(1)
     batch = engine.prepare_batch(next(iter(loader)))
-    dtypes = {np.asarray(v).dtype for v in (batch.values() if isinstance(batch, dict) else batch)}
+    dtypes = {np.asarray(v).dtype for v in (batch.values() if isinstance(batch, dict) else batch)
+              if np.asarray(v).ndim > 1}  # not MAE's labels
     host_normalized = "NormalizeImage" in json.dumps(dl["dataset"])
     check(dtypes == {np.dtype(np.float32 if host_normalized else np.uint8)},
           f"views reach the device as {dtypes}")
@@ -1473,11 +1526,14 @@ def _ssl_first_batch(engine: Engine, device: str):
 
 def _to_f64(model: torch.nn.Module) -> None:
     """Every parameter, buffer and compute dtype of `model` in float64 (a
-    numerics yardstick only: the port computes in f32 or bf16)."""
+    numerics yardstick only: the port computes in f32 or bf16), the einsum
+    attention's scores and output included."""
     model.double()
     for m in model.modules():
         if hasattr(m, "compute_dtype"):
             m.compute_dtype = torch.float64
+        if isinstance(m, Attention):
+            m.dtype = m.softmax_dtype = torch.float64
 
 
 def _ssl_first_step(spec: SSLSpec, tmp: str, device: str, f64: bool) -> tuple[float, dict]:
@@ -1502,15 +1558,18 @@ def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
     names = list(g_a)
     cos_all = _cos(torch.cat([g_a[n].flatten() for n in names]),
                    torch.cat([g_b[n].flatten() for n in names]))
-    convs = [n for n in names if g_a[n].dim() == 4 and (
-        n == f"{spec.backbone}conv1.weight" or n.startswith(f"{spec.backbone}layer4."))]
-    check(len(convs) == spec.convs, f"{spec.tag}: {len(convs)} stem/layer4 convs, want {spec.convs}")
-    cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in convs}
+    watched = [n for n in names if spec.watch(n)] if spec.watch else [
+        n for n in names if g_a[n].dim() == 4 and (
+            n == f"{spec.backbone}conv1.weight" or n.startswith(f"{spec.backbone}layer4."))]
+    what = "qkv weights" if spec.watch else "stem/layer4 convs"
+    check(len(watched) == spec.watched, f"{spec.tag}: {len(watched)} {what}, want {spec.watched}")
+    cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in watched}
     worst = min(cos_conv, key=cos_conv.get)
     rel = abs(l_a - l_b) / max(abs(l_b), spec.loss_scale)
-    log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} pairs): loss {l_a:.9f} vs "
+    unit = "pairs" if spec.views == 2 else "images"
+    log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} {unit}): loss {l_a:.9f} vs "
         f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
-        f"{len(convs)} stem/layer4 convs {cos_conv[worst]:.9f} ({worst})")
+        f"{len(watched)} {what} {cos_conv[worst]:.9f} ({worst})")
     return {"loss_rel": rel, "grad_cos": cos_all, "grad_cos_min_conv": cos_conv[worst]}
 
 
@@ -1532,6 +1591,9 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
         check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
               f"{spec.tag} card vs CPU first step: {rec}")
     if spec.f32_error_ratio:
+        log(f"[train] {spec.tag} first step: the card's f32 error from f64 is "
+            f"{(1 - card['grad_cos']) / max(1 - ref['grad_cos'], 1e-30):.4g} times the CPU's "
+            f"(limit {spec.f32_error_ratio})")
         check(1 - card["grad_cos"] <= spec.f32_error_ratio * (1 - ref["grad_cos"]),
               f"{spec.tag} the card's f32 {card} further from f64 than {spec.f32_error_ratio} "
               f"times the CPU's f32 {ref}")
@@ -2041,7 +2103,7 @@ PIXPRO_SPEC = SSLSpec("PixPro-R50", os.path.join(REPO, "configs", "pixpro", "pix
 FASTMOCO_SPEC = SSLSpec("FastMoCo-R18", os.path.join(REPO, "configs", "moco",
                                                      "fastmoco_r18_synthetic.yaml"),
                         128,  # pairs: the config's own batch, at its own 32 x 32
-                        8, (), "online.backbone.", "target.", img=32, convs=6,
+                        8, (), "online.backbone.", "target.", img=32, watched=6,
                         f32_error_ratio=2.0)
 
 
@@ -2210,6 +2272,386 @@ def phase_train_fastmoco() -> dict:
     return out
 
 
+# ------------------------------------ the rest of the ViT family: DeiT, ViT-L remat, MoCo v3, MAE
+
+DEIT_CONFIG = os.path.join(REPO, "configs", "classification", "deit_base_patch16_224_in1k.yaml")
+DEIT_NAME = "DeiT_base_distilled_patch16_224"  # 198 tokens: the class and distillation tokens
+
+
+def phase_serve_deit() -> int:
+    """DeiT-B distilled at 224 through export and Predictor (the in1k DeiT
+    config with its model named the distilled one): the flash path against the
+    einsum path on the same weights, 12 flash launches per forward."""
+    out = _serve_kernel_vs_einsum("DeiT-B distilled", DEIT_CONFIG, DEIT_NAME, VIT_BLOCKS,
+                                  flash_attention, "Model.attn_impl=flash",
+                                  common=(f"Model.name={DEIT_NAME}",))
+    # as ViT-B/16's serving check: the einsum path rounds its scores and softmax
+    # to bf16 (the config's softmax_dtype) where the kernel keeps them in f32
+    check(out["bf16"][0] >= 0.999, f"DeiT-B distilled bf16 logits disagree: {out['bf16']}")
+    check(out["bf16, softmax f32"][0] >= 0.9999,
+          f"DeiT-B distilled bf16 (softmax f32) logits disagree: {out['bf16, softmax f32']}")
+    check(out["f32"][1] <= 1e-4, f"DeiT-B distilled f32 logits disagree: {out['f32']}")
+    return out["bf16"][2]
+
+
+def _flash_launches() -> tuple:
+    """The three flash kernels' launches (forward, dK/dV, dQ) since the last reset."""
+    return tuple(_launches(VIT_TRAIN).values())
+
+
+VITL_CONFIG = os.path.join(REPO, "configs", "classification", "vit_large_patch16_384_ft_in1k.yaml")
+VITL_BLOCKS = 24
+VITL_BATCH = 32  # the JAX package's bench row (bench.py:819)
+VITL_STEPS = 4
+VITL_TRAIN = TrainSpec("ViT-L/16-384", VITL_CONFIG, VITL_BATCH, VITL_BLOCKS, VITL_BLOCKS,
+                       flash_attention, (flash_attention_dkv, flash_attention_dq),
+                       # random weights: the finetune config's pretrained file is not here
+                       ("Model.attn_impl=flash", f"Global.max_train_step={VITL_STEPS}",
+                        "Global.pretrained_model=None"), (), (),
+                       lambda n: n.endswith("attn.qkv.weight"))
+REMAT_POLICIES = ("nothing", "dots_no_batch", "dots")
+
+
+def phase_train_vitl_remat() -> dict:
+    """ViT-L/16 at 384 (577 tokens), the config's remat (dots_no_batch) and
+    drop path 0.1, on the flash path: the first step's gradients under each
+    policy and without remat, from one init, batch and generator state, with
+    each run's peak memory and launches; then VITL_STEPS steps of the config."""
+    spec = VITL_TRAIN
+    out: dict = {}
+    pol: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        batch, flat, qkv0 = None, {}, {}
+        for policy in (None, *REMAT_POLICIES):
+            tag = policy or "no remat"
+            remat = (("Model.remat=False",) if policy is None
+                     else ("Model.remat=True", f"Model.remat_policy={policy}"))
+            cfg = _train_config(spec, os.path.join(tmp, tag), *spec.kernel, *remat, workers=0)
+            e = Engine(cfg, mode="train", device="cuda")
+            check(e.model.remat_policy == policy and len(e.model.blocks) == VITL_BLOCKS
+                  and e.model.blocks[-1].drop_path1.rate > 0.09, f"ViT-L/16-384 {tag}: the model")
+            if batch is None:
+                batch = _first_batch(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(VIT_TRAIN)
+            loss, g = _grads(e, batch)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = _flash_launches()
+            prof: dict = {}
+            line = _profile(lambda: _grads(e, batch), prof)  # the host's cost of each policy
+            log(f"[profile] ViT-L/16-384 forward and backward, {tag}: {line}")
+            flat[policy] = torch.cat([g[n].flatten() for n in sorted(g)]).cpu()
+            qkv = {n: g[n].cpu() for n in g if spec.kernel_fed(n)}
+            del e, g
+            gc.collect()  # the profiler's events hold the engine: free it before the next peak
+            torch.cuda.empty_cache()
+            want = (VITL_BLOCKS * (1 if policy is None else 2), VITL_BLOCKS, VITL_BLOCKS)
+            check(launches == want, f"ViT-L/16-384 {tag}: launches {launches}, want {want} "
+                                    "(fwd, dkv, dq): the recompute runs the flash forward again")
+            rec = {"loss": loss, "peak_GiB": peak, "launches": launches,
+                   "fwd_bwd_busy_ms": prof["busy_ms"], "fwd_bwd_wall_ms": prof["wall_ms"]}
+            if policy is not None:
+                base = flat[None]
+                rec["grad_cos"] = _cos(flat[policy].double(), base.double())
+                rec["bitwise"] = bool(torch.equal(flat[policy], base))
+                rec["qkv_cos_min"] = min(_cos(qkv[n].flatten().double(),
+                                              qkv0[n].flatten().double()) for n in qkv)
+                # the same kernels on the same inputs, the saved products
+                # recomputed by the same kernels: only a reordering could move them
+                check(rec["grad_cos"] >= 0.99999 and rec["qkv_cos_min"] >= 0.99999
+                      and abs(loss - pol[None]["loss"]) <= 1e-6 * abs(loss),
+                      f"ViT-L/16-384 {tag}: gradients differ from no remat's: {rec}")
+            else:
+                qkv0 = qkv
+            pol[policy] = rec
+            log(f"[train] ViT-L/16-384 first step, {tag}: loss {loss:.6f}, peak {peak:.2f} GiB, "
+                f"launches (fwd, dkv, dq) {launches}"
+                + ("" if policy is None else f", gradient cosine to no remat {rec['grad_cos']:.9f}"
+                   f" (lowest qkv {rec['qkv_cos_min']:.9f}), bitwise {rec['bitwise']}"))
+        out["policies"] = {str(k): v for k, v in pol.items()}
+        for policy in ("nothing", "dots_no_batch"):
+            check(pol[policy]["peak_GiB"] < pol[None]["peak_GiB"],
+                  f"ViT-L/16-384: {policy} peaks at {pol[policy]['peak_GiB']:.2f} GiB, not below "
+                  f"no remat's {pol[None]['peak_GiB']:.2f}")
+        del flat, qkv0
+
+        # the main path: the config as it stands (dots_no_batch), VITL_STEPS steps
+        e = Engine(_train_config(spec, os.path.join(tmp, "main"), *spec.kernel), mode="train",
+                   device="cuda")
+        check(e.model.remat_policy == "dots_no_batch", "ViT-L/16-384: not the config's remat")
+        _reset_launches(VIT_TRAIN)
+        torch.cuda.reset_peak_memory_stats()
+        e.train()
+        launches = _flash_launches()
+        want = (2 * VITL_BLOCKS * VITL_STEPS, VITL_BLOCKS * VITL_STEPS, VITL_BLOCKS * VITL_STEPS)
+        check(launches == want, f"ViT-L/16-384: {VITL_STEPS} steps launched {launches}, want {want}")
+        out["launches"] = launches
+        out.update(_step_report("ViT-L/16-384 bf16 remat dots_no_batch", e, VITL_BATCH,
+                                steps=VITL_STEPS))
+        prof: dict = {}
+        log(f"[profile] ViT-L/16-384 train step, bf16, remat dots_no_batch: "
+            f"{_profile(lambda: float(e.train_step(e.state, batch)['loss']), prof)}")
+        out.update(busy_ms=prof["busy_ms"], idle_share=1 - prof["busy_ms"] / prof["wall_ms"])
+        log(f"[train] ViT-L/16-384: flash launches a step (fwd, dkv, dq) "
+            f"{tuple(n // VITL_STEPS for n in launches)}; device busy per step "
+            f"{prof['busy_ms']:.3f} ms")
+        del e, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flash_step_launches(tag: str, steps: int, per_step: tuple) -> None:
+    got = _flash_launches()
+    want = tuple(steps * n for n in per_step)
+    check(got == want, f"{tag}: {steps} steps launched (fwd, dkv, dq) {got}, want {want}")
+    log(f"[train] {tag}: flash launches a step (fwd, dkv, dq) {per_step}")
+
+
+class _StopGradCheck:
+    """Wraps MoCo v3's train step: with stop_grad_conv1 the patch embedding
+    takes no gradient, so AdamW moves its kernel by the decay alone, p (1 - lr
+    wd) each step, and its bias (no decay: 1-D) not at all."""
+
+    def __init__(self, tag: str, engine: Engine, prefix: str = "base.encoder.patch_embed.proj"):
+        self.tag, self.step_fn = tag, engine.train_step
+        named = dict(engine.model.named_parameters())
+        self.w, self.b = named[f"{prefix}.weight"], named[f"{prefix}.bias"]
+        groups = engine.optimizer.torch_optimizer.param_groups
+        self.group = next(g for g in groups if any(p is self.w for p in g["params"]))
+        self.worst, self.decays = 0.0, []
+
+    def __call__(self, state, batch):
+        w0, b0 = self.w.detach().clone(), self.b.detach().clone()
+        metrics = self.step_fn(state, batch)
+        decay = 1.0 - self.group["lr"] * self.group["weight_decay"]
+        want = w0 * decay
+        # a few f32 roundings of the kernel; one AdamW step of a gradient would
+        # move each entry by about the lr (1e-5 here), a thousand times more
+        err = ((self.w.detach() - want).abs().max() / w0.abs().max()).item()
+        self.worst = max(self.worst, err)
+        self.decays.append(decay)
+        # the warmup's lr is 0 at step 0, so the kernel moves from step 1 on
+        moved = not torch.equal(self.w.detach(), w0)
+        check(err <= 4 * float(np.finfo(np.float32).eps) and moved == (decay < 1.0),
+              f"{self.tag}: the patch embedding moved by other than the decay at step "
+              f"{state.step}: {err}, decay {decay}, moved {moved}")
+        check(torch.equal(self.b.detach(), b0), f"{self.tag}: the patch embedding's bias moved")
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+MOCOV3_SPEC = SSLSpec(
+    "MoCoV3-ViT-B/16", os.path.join(REPO, "configs", "mocov3", "mocov3_vit_base_in1k.yaml"),
+    128,  # pairs: the JAX package's bench row (bench.py:449)
+    # 4 pairs, on the einsum path (the flash kernels take no f64; the flash
+    # path's gradients are held against the einsum path's below). The card's
+    # f32 error from f64 read 1.36-5.27 times the CPU's at the config's seed
+    # and four others (4.91 at 42), in the blocks, head and predictor alike;
+    # TF32 products read 2.4e6 times: 20 tells the two apart
+    # (tests/perf/mocov3_f32_spread.py, H100 80GB HBM3 at 700 W)
+    4, ("Model.encoder.attn_impl=einsum",), "base.encoder.", "momentum.",
+    overrides=("Model.encoder.attn_impl=flash",), f32_error_ratio=20.0, watched=12,
+    watch=lambda n: n.startswith("base.encoder.blocks.") and n.endswith("attn.qkv.weight"))
+MOCOV3_BLOCKS = 12
+
+
+MOCOV3_GRAD_PAIRS = 32
+
+
+def _mocov3_flash_vs_einsum(spec: SSLSpec, tmp: str) -> dict:
+    """The flash path's first-step gradients against the einsum path's from one
+    init and batch, in f32 (TF32 off) at MOCOV3_GRAD_PAIRS pairs, and one
+    step's launches. In bf16 the two paths round the scores and p at other
+    places, and the contrastive loss at T = 0.2 over BatchNorm heads turns that
+    rounding into gradient directions that part by more than the check's 1e-3
+    even where both paths are plain PyTorch: f32 holds the kernels, whose bf16
+    versions the flash phases hold against their plain versions."""
+    engines = [Engine(_ssl_config(spec, os.path.join(tmp, f"grads_{impl}"), MOCOV3_GRAD_PAIRS,
+                                  "FP16.enable=False", f"Model.encoder.attn_impl={impl}"),
+                      mode="train", device="cuda") for impl in ("flash", "einsum")]
+    e_k, e_p = engines
+    check(_same_start(e_k, e_p), "MoCoV3-ViT-B/16: the two paths start from different weights")
+    batch = _ssl_first_batch(e_k, "cuda")
+    _reset_launches(VIT_TRAIN)
+    loss_k, g_k = _grads(e_k, batch)
+    one = _flash_launches()
+    want = (4 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS)
+    check(one == want, f"MoCoV3-ViT-B/16: one f32 step launched {one}, want {want}")
+    loss_p, g_p = _grads(e_p, batch)
+    check(_flash_launches() == one, "MoCoV3-ViT-B/16: the einsum path launched a kernel")
+    for e in engines:
+        e.close()
+    del engines, e_k, e_p, batch
+    names = [n for n in g_k if not n.startswith("momentum.")]
+    # in f64: an f32 dot product over 100M entries rounds past 1e-3
+    cos_all = _cos(torch.cat([g_k[n].flatten() for n in names]).double(),
+                   torch.cat([g_p[n].flatten() for n in names]).double())
+    cos_qkv = {n: _cos(g_k[n].flatten().double(), g_p[n].flatten().double())
+               for n in names if spec.watch(n)}
+    worst = min(cos_qkv, key=cos_qkv.get)
+    log(f"[train] MoCoV3-ViT-B/16 first-step gradients, flash vs einsum path, f32, "
+        f"{MOCOV3_GRAD_PAIRS} pairs: loss {loss_k:.7f} vs {loss_p:.7f}, cosine overall "
+        f"{cos_all:.9f}, lowest of {len(cos_qkv)} qkv weights {cos_qkv[worst]:.9f} ({worst}); "
+        f"launches (fwd, dkv, dq) {one}")
+    # the same f32 function with the scale after the product and sums in
+    # another order: 1e-3 of cosine is far above that, and a wrong term far below
+    check(cos_all >= 0.999 and cos_qkv[worst] >= 0.999 and len(cos_qkv) == MOCOV3_BLOCKS,
+          f"MoCoV3-ViT-B/16: flash and einsum gradients disagree: {cos_all}, {worst}")
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+          f"MoCoV3-ViT-B/16: losses disagree: {loss_k} vs {loss_p}")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return {"flash_vs_einsum_f32_grad_cos": cos_all, "flash_vs_einsum_f32_qkv_cos_min":
+            cos_qkv[worst]}
+
+
+def phase_train_mocov3() -> dict:
+    spec = MOCOV3_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update(_mocov3_flash_vs_einsum(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and m.base.encoder.stop_grad_conv1
+              and len(m.base.encoder.blocks) == MOCOV3_BLOCKS
+              and m.base.encoder.blocks[0].attn.attn_impl == "flash"
+              and tuple(m.base.head.fc0.weight.shape) == (4096, 768)
+              and tuple(m.base.predictor.fc1.weight.shape) == (256, 4096)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW",
+              "MoCoV3-ViT-B/16: not the recipe's bf16 / stop_grad_conv1 / 12 flash blocks / "
+              "heads 4096 -> 256 / AdamW")
+        batch = _ssl_first_batch(e, "cuda")
+        ema = _EmaCheck(spec.tag, e)
+        stop = _StopGradCheck(spec.tag, e)
+        stop.step_fn, e.train_step = ema, stop
+        want = (4 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS)
+        _reset_launches(VIT_TRAIN)
+        torch.cuda.reset_peak_memory_stats()
+        e.train()  # the main path, as tools/train runs it
+        e.train_step = ema.step_fn
+        _flash_step_launches(spec.tag, TRAIN_STEPS, want)
+        check(len(ema.dst) == len(list(m.momentum.parameters()))
+              and any(d is p for d in ema.dst for p in m.momentum.predictor.parameters()),
+              "MoCoV3-ViT-B/16: the EMA does not move every momentum parameter, the inert "
+              "predictor included")
+        m0, m_last = ema.m_fn(0), ema.m_fn(TRAIN_STEPS - 1)
+        check(abs(m0 - 0.99) <= 1e-6 and 0.99 < m_last < 1.0,
+              f"MoCoV3-ViT-B/16: the momentum is not the cosine from 0.99: {m0}, {m_last}")
+        _no_optimizer_state_on(spec, e)
+        check(stop.decays[-1] < 1.0, f"MoCoV3-ViT-B/16: no decay reached the patch embedding: "
+                                     f"{stop.decays}")
+        log(f"[train] MoCoV3-ViT-B/16: the EMA rule (cosine from 0.99, m {m0:.6f} -> "
+            f"{m_last:.6f}) held at every step on all {len(ema.dst)} momentum parameters, the "
+            f"inert predictor's included (max rel err {ema.worst:.3g}); the momentum tower has "
+            f"no optimizer state; the patch embedding moved by AdamW's decay alone (worst "
+            f"{stop.worst:.3g} of its largest entry; factors {stop.decays[0]:.9f} .. "
+            f"{stop.decays[-1]:.9f}), its bias bitwise still")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no MoCoV3-ViT-B/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 100.0)),
+                   ema_max_rel_err=ema.worst, stop_grad_max_err=stop.worst,
+                   launches_per_step=want)
+        del e, m, batch, stop, ema
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+@contextlib.contextmanager
+def _one_noise(n: int, length: int):
+    """MAE's masking draws one fixed noise [n, length] on every device."""
+    noise = torch.from_numpy(np.random.RandomState(16).rand(n, length).astype(np.float32))
+    orig = mae.masking_noise
+    mae.masking_noise = lambda n_, l_, generator, device: noise.to(device)
+    try:
+        yield
+    finally:
+        mae.masking_noise = orig
+
+
+class _MaskCheck:
+    """Spies on MAE's masking on the main path: every mask holds `masked` of
+    the patches and every ids_restore is a permutation."""
+
+    def __init__(self, masked: int):
+        self.masked, self.calls, self.orig = masked, 0, mae.random_masking
+
+    def __enter__(self):
+        def spy(x, ratio, noise):
+            x_masked, mask, ids_restore = self.orig(x, ratio, noise)
+            n, length = mask.shape
+            perm = torch.equal(torch.sort(ids_restore, dim=1).values,
+                               torch.arange(length, device=mask.device).expand(n, -1))
+            check(bool((mask.float().sum(1) == self.masked).all()) and perm,
+                  f"MAE: a mask does not hold {self.masked} of {length} patches, or ids_restore "
+                  "is no permutation")
+            self.calls += 1
+            return x_masked, mask, ids_restore
+
+        mae.random_masking = spy
+        return self
+
+    def __exit__(self, *exc):
+        mae.random_masking = self.orig
+
+
+MAE_ENCODER_BLOCKS, MAE_DECODER_BLOCKS = 12, 8
+MAE_SPEC = SSLSpec(
+    "MAE-ViT-B/16", os.path.join(REPO, "configs", "mae", "mae_vit_base_in1k.yaml"),
+    256,  # images: the JAX package's bench row (bench.py:279)
+    4, ("Model.attn_impl=einsum",), "", overrides=("Model.attn_impl=flash",), views=1,
+    f32_error_ratio=2.0, watched=MAE_ENCODER_BLOCKS + MAE_DECODER_BLOCKS,
+    watch=lambda n: n.endswith("attn.qkv.weight"))
+MAE_PATCHES, MAE_MASKED = 196, 147  # 14 x 14 patches, 75% masked: 49 stay, 50 tokens with cls
+
+
+def phase_train_mae() -> dict:
+    spec = MAE_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with _one_noise(spec.grad_batch, MAE_PATCHES):
+            out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and len(m.blocks) == MAE_ENCODER_BLOCKS
+              and len(m.decoder_blocks) == MAE_DECODER_BLOCKS and m.norm_pix_loss
+              and m.decoder_blocks[0].attn.num_heads == 16
+              and m.decoder_embed.out_features == 512
+              and m.blocks[0].attn.attn_impl == "flash",
+              "MAE-ViT-B/16: not the recipe's bf16 / 12 + 8 flash blocks / decoder 512 wide, "
+              "16 heads of 32 / norm-pix loss")
+        batch = _ssl_first_batch(e, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(VIT_TRAIN)
+        with _MaskCheck(MAE_MASKED) as masks, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            e.train()  # the main path, as tools/train runs it
+        # the encoder's 50 tokens fall back to einsum with the JAX package's
+        # warning; the decoder's 197 take the flash kernels
+        per_step = (MAE_DECODER_BLOCKS,) * 3
+        _flash_step_launches(spec.tag, TRAIN_STEPS, per_step)
+        short = [w for w in caught if "sequence too short (50)" in str(w.message)]
+        check(masks.calls == TRAIN_STEPS and len(short) == MAE_ENCODER_BLOCKS * TRAIN_STEPS,
+              f"MAE-ViT-B/16: {masks.calls} maskings, {len(short)} einsum fallbacks at 50 tokens")
+        log(f"[train] MAE-ViT-B/16: every mask held {MAE_MASKED} of {MAE_PATCHES} patches and "
+            f"every ids_restore was a permutation ({masks.calls} steps); the encoder's 50 tokens "
+            f"took einsum ({len(short)} fallbacks), the decoder's 197 the flash kernels")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no MAE-ViT-B/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 10.0)),
+                   launches_per_step=per_step)
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
 def _timed(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2246,6 +2688,12 @@ def main() -> None:
     train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)["launches"]
     swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)["launches"]
     vit = _timed("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
+    deit_serve_launches = _timed("serve DeiT-B distilled", phase_serve_deit)
+    log(f"[serve] flash forward launches on DeiT-B distilled's serving path: "
+        f"{deit_serve_launches}")
+    _timed("train ViT-L/16-384 remat", phase_train_vitl_remat)
+    _timed("train MoCoV3-ViT-B/16", phase_train_mocov3)
+    _timed("train MAE-ViT-B/16", phase_train_mae)
     aug = _timed("augment", phase_augment)
     _timed("train BYOL-R50", phase_train_byol)
     _timed("train SimCLR-R50", phase_train_simclr)

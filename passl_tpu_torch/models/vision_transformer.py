@@ -18,8 +18,19 @@ whatever `softmax_dtype` says, as the JAX library kernel does.
 finetuning at a new resolution, as `jax.image.resize(method="bicubic")`
 does in the JAX package; the pretrained loader (`utils/io.py`) calls it.
 
-Not ported yet, and refused: dropout (`drop_rate`, `attn_drop_rate`),
-`remat` / `remat_policy` other than the defaults, and `pipeline`.
+`remat` recomputes each block's activations in the backward (the JAX
+model's `nn.remat(Block)`, `passl_tpu/models/vision_transformer.py:121-143`):
+each block runs under non-reentrant `torch.utils.checkpoint`, and
+`remat_policy` says what it saves (`ops/attention.py:87
+resolve_remat_policy` of the JAX package): `nothing` the block's input
+alone; `dots_no_batch` the products without a batch dimension (the Dense
+layers' `mm` / `addmm`) through selective checkpointing, so that the
+attention, flash kernel included, is recomputed; `dots` every product
+(`bmm` too). A block's stochastic-depth uniforms are drawn before it and
+handed in, so the recompute replays them as flax's remat replays its key.
+
+Not ported yet, and refused: dropout (`drop_rate`, `attn_drop_rate`) and
+`pipeline`.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..core.amp import resolve_dtype
 from ..nn import init as tinit
@@ -78,6 +90,55 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, new_grid: int,
     out = torch.einsum("iy,jx,ijc->yxc", w, w, grid.reshape(old, old, c).double())
     out = out.reshape(1, new_grid * new_grid, c).to(pos_embed.dtype)
     return torch.cat([prefix, out], dim=1)
+
+
+_aten = torch.ops.aten
+# the products each remat policy saves (by overload packet); None: the block's input only
+REMAT_POLICIES = {
+    "nothing": None,
+    "dots_no_batch": (_aten.mm, _aten.addmm),
+    "dots": (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm),
+}
+
+
+def remat_context(policy: str):
+    """The `context_fn` of `torch.utils.checkpoint.checkpoint` for a remat
+    policy (None for `nothing`); ValueError naming the three on another name,
+    as the JAX package's `resolve_remat_policy`."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; expected one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[policy]
+    if saved is None:
+        return None
+
+    def keep(ctx, func, *args, **kwargs):
+        return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if func.overloadpacket in saved
+                else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, keep)
+
+
+def run_blocks(blocks, x: torch.Tensor, generator: Optional[torch.Generator],
+               remat_policy: Optional[str] = None) -> torch.Tensor:
+    """x through each block in turn; with a `remat_policy`, where gradients
+    are taken, each block runs under non-reentrant checkpointing with its
+    stochastic-depth uniforms drawn before it (the draws are the same, in the
+    same order, as without remat)."""
+    if remat_policy is None or not torch.is_grad_enabled():
+        for blk in blocks:
+            x = blk(x, generator)
+        return x
+    context = remat_context(remat_policy)
+    kw = {"context_fn": context} if context is not None else {}
+    for blk in blocks:
+        draws = blk.draw(x, generator)
+        # the block draws nothing from the global RNGs: there is no state to keep
+        x = torch_checkpoint.checkpoint(blk, x, None, draws, use_reentrant=False,
+                                        preserve_rng_state=False, **kw)
+    return x
+
+
 HEAD_INITS = {
     "trunc_normal": _trunc02,
     "zeros": tinit.zeros_,
@@ -108,9 +169,8 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if drop_rate or attn_drop_rate:
             raise NotImplementedError("ViT drop_rate / attn_drop_rate > 0 are not ported yet")
-        if remat or remat_policy != "nothing":
-            raise NotImplementedError("ViT remat / remat_policy (activation recompute) are not "
-                                      "ported yet")
+        if remat:
+            remat_context(remat_policy)  # an unknown policy raises here, as JAX's at trace
         if pipeline:
             raise NotImplementedError("ViT pipeline (pipeline parallelism) is not ported yet")
         if head_init not in HEAD_INITS:
@@ -120,6 +180,8 @@ class VisionTransformer(nn.Module):
         self.img_size = img_size
         self.in_chans = in_chans
         self.embed_dim = embed_dim
+        self.out_channels = embed_dim  # the features' width (a probe's head takes it)
+        self.remat_policy = remat_policy if remat else None
         self.global_pool = global_pool
         self.num_classes = num_classes
         self.stop_grad_patch_embed = stop_grad_patch_embed
@@ -153,8 +215,7 @@ class VisionTransformer(nn.Module):
             x = x.detach()
         cls = self.cls_token.to(x.dtype).expand(n, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x, generator)
+        x = run_blocks(self.blocks, x, generator, self.remat_policy)
         if self.global_pool:
             feats = self.fc_norm(x[:, 1:].mean(dim=1))
         else:

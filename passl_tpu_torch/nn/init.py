@@ -33,6 +33,16 @@ def constant_(t: torch.Tensor, value: float,
     return torch.nn.init.constant_(t, value)
 
 
+def normal_(t: torch.Tensor, mean: float = 0.0, std: float = 1.0,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return torch.nn.init.normal_(t, mean, std, generator=generator)
+
+
+def uniform_(t: torch.Tensor, a: float = 0.0, b: float = 1.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return torch.nn.init.uniform_(t, a, b, generator=generator)
+
+
 def trunc_normal_(t: torch.Tensor, mean: float = 0.0, std: float = 1.0, a: float = -2.0,
                   b: float = 2.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Normal(mean, std) truncated to the absolute bounds [a, b] (torch's semantics)."""

@@ -91,7 +91,8 @@ class Conv1x1(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax `LayerNorm(dtype=...)`: statistics and affine in f32, output at `dtype`."""
+    """flax `LayerNorm(dtype=...)`: statistics and affine in f32 (f64 for a
+    model run in f64), output at `dtype`."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype: torch.dtype = torch.float32):
         self.compute_dtype = dtype
@@ -102,7 +103,8 @@ class LayerNorm(nn.LayerNorm):
         tinit.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        y = F.layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -119,15 +121,25 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The per-sample uniforms `forward` keeps by, or None where it is the identity."""
         if not self.training or self.rate == 0.0:
-            return x
+            return None
         if generator is None:
             raise ValueError("DropPath: training with rate > 0 needs an explicit torch.Generator")
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        return torch.rand(shape, generator=generator, device=x.device)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                draw: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`draw`, where given, stands in for this call's uniforms (a block
+        recomputed under activation checkpointing replays its first draws)."""
+        if not self.training or self.rate == 0.0:
+            return x
+        if draw is None:
+            draw = self.draw(x, generator)
+        keep = 1.0 - self.rate
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 class Mlp(nn.Module):
@@ -147,9 +159,10 @@ class PatchEmbed(nn.Module):
     """Image NHWC -> patch tokens [n, h*w, c] via a strided conv (NCHW inside)."""
 
     def __init__(self, patch_size: int = 16, embed_dim: int = 768, in_chans: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel_init: Callable = tinit.xavier_uniform_):
         super().__init__()
-        self.proj = Conv2d(in_chans, embed_dim, patch_size, patch_size, dtype=dtype)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, patch_size, dtype=dtype,
+                           kernel_init=kernel_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.proj(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
@@ -221,12 +234,19 @@ class Block(nn.Module):
             tinit.constant_(self.gamma_1, self.init_values)
             tinit.constant_(self.gamma_2, self.init_values)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> tuple:
+        """The stochastic-depth uniforms of one forward on `x`, in the order the
+        forward draws them (each None where its DropPath is the identity)."""
+        return self.drop_path1.draw(x, generator), self.drop_path2.draw(x, generator)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                draws: Optional[tuple] = None) -> torch.Tensor:
+        d1, d2 = draws if draws is not None else (None, None)
         y = self.attn(self.norm1(x))
         if self.init_values is not None:
             y = y * self.gamma_1
-        x = x + self.drop_path1(y, generator)
+        x = x + self.drop_path1(y, generator, d1)
         y = self.mlp(self.norm2(x))
         if self.init_values is not None:
             y = y * self.gamma_2
-        return x + self.drop_path2(y, generator)
+        return x + self.drop_path2(y, generator, d2)

@@ -27,6 +27,10 @@ init of whatever the file lacks), and the tool exits non-zero naming every
 entry under the `--rename` name (or the prefix) that the file left
 unfilled: a probe over a backbone that silently kept its random init
 measures nothing.
+
+MAE's encoder is no sub-module of its own: `mae_encoder` takes it out of a
+`MaskedAutoencoderViT` state (the learning check's extract, as
+`tests/e2e/run_learning_check.sh:175-212` does for the JAX package).
 """
 from __future__ import annotations
 
@@ -80,6 +84,38 @@ def unfilled(config_path: str, weights: str, root: str) -> list:
     return sorted(k for k in report["missing"] + report["mismatched"] if k.startswith(root))
 
 
+def require_filled(config_path: str, weights: str, root: str) -> None:
+    """SystemExit naming every entry under `root` of the config's model that
+    `weights` leaves unfilled (`--check-config`)."""
+    left = unfilled(config_path, weights, root)
+    if left:
+        raise SystemExit(f"{weights} leaves {len(left)} entries of {config_path}'s model "
+                         f"unfilled: {left}")
+    logger.info(f"{weights} fills every '{root}' entry of {config_path}'s model")
+
+
+def mae_encoder(state: dict, img_size: int, rename: str = "backbone") -> dict:
+    """The encoder of a `MaskedAutoencoderViT` state (`patch_embed`,
+    `cls_token`, `blocks`; not the decoder and not the pretrain `norm`) under
+    `rename`, with the fixed sin-cos table the pretrain added as the probe
+    ViT's `pos_embed` [1, grid^2 + 1, D] (a zero class slot), the grid
+    `img_size` over the patch size: what the JAX package's learning check
+    extracts. The global-pool probe's `fc_norm`, which the pretrain has none
+    of, goes in at a LayerNorm's init (ones, zeros), where the JAX check's
+    fresh probe starts it."""
+    from passl_tpu_torch.models.utils.pos_embed import get_2d_sincos_pos_embed
+
+    picked = {f"{rename}.{k}": v for k, v in state.items()
+              if k.startswith(("patch_embed.", "blocks.")) or k == "cls_token"}
+    weight = state["patch_embed.proj.weight"]
+    grid = img_size // weight.shape[-1]
+    table = get_2d_sincos_pos_embed(weight.shape[0], grid, cls_token=True)[None]
+    picked[f"{rename}.pos_embed"] = torch.from_numpy(table)
+    picked[f"{rename}.fc_norm.weight"] = torch.ones(weight.shape[0])
+    picked[f"{rename}.fc_norm.bias"] = torch.zeros(weight.shape[0])
+    return picked
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     ckpt = torch.load(io.resolve_checkpoint(args.checkpoint), map_location="cpu",
@@ -90,12 +126,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     logger.info(f"extracted {len(picked)} tensors ({n_stats} BN statistics) from "
                 f"'{args.prefix}' of {args.checkpoint} (step {ckpt['step']}) -> {args.output}")
     if args.check_config:
-        left = unfilled(args.check_config, args.output, args.rename or args.prefix)
-        if left:
-            raise SystemExit(f"{args.output} leaves {len(left)} entries of {args.check_config}'s "
-                             f"model unfilled: {left}")
-        logger.info(f"{args.output} fills every '{args.rename or args.prefix}' entry of "
-                    f"{args.check_config}'s model")
+        require_filled(args.check_config, args.output, args.rename or args.prefix)
     return picked
 
 

@@ -9,7 +9,10 @@ kernel HWIO becomes OIHW. BatchNorm statistics come from the flax
 The leaves of another variable collection (`collections`, e.g. MoCo's `ssl`
 with its `queue` and `queue_ptr`) land on the buffers of the same names,
 their layouts and dtypes kept as the buffers have them. Every flax leaf must land on a torch parameter or buffer of the same shape,
-and every entry of the model's `state_dict` must be filled.
+and every entry of the model's `state_dict` must be filled; an EMA target
+tower's entries that the flax variables lack (MoCo v3's momentum predictor,
+never run, so never initialised by flax) are copied from its online tower,
+as the JAX engine copies the tower before training.
 
 `flax_path` goes the other way on a parameter's name: the path the JAX
 package's optimizer matches a config's regexes against.
@@ -99,6 +102,16 @@ def flax_to_torch(params: Mapping, model: torch.nn.Module,
                              f"{key!r} has {tuple(target[key].shape)}")
         dtype = arr.dtype if arr.dtype.kind in "iub" else np.float32  # (bf16 has no torch numpy)
         out[key] = torch.from_numpy(np.array(arr, dtype=dtype)).to(target[key].dtype)
+    # the entries a model says its flax variables never hold (MoCo v3's momentum
+    # predictor, which the JAX model never runs) take their EMA source's, as the
+    # JAX engine copies the online tower into the target before training; any
+    # other gap raises below
+    absent = tuple(model.flax_absent()) if hasattr(model, "flax_absent") else ()
+    for src, dst, _ in (model.ema_map() if absent else ()):
+        for key in sorted(set(target) - set(out)):
+            if (key.startswith(absent) and key.startswith(f"{dst}.")
+                    and f"{src}{key[len(dst):]}" in out):
+                out[key] = out[f"{src}{key[len(dst):]}"].clone()
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"no flax leaf fills {missing}")

@@ -7,18 +7,25 @@
 # a learning system, through the port's CLIs alone.
 #
 #   tests/e2e/run_learning_check_torch.sh \
-#       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|random \
-#       [output dir [-o Section.key=value ...]]
+#       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|mocov3|mae \
+#       |random|random_mocov3|random_mae [output dir [-o Section.key=value ...]]
 #
 # Overrides after the output dir go to the pretrain and to the probe alike
 # (e.g. -o Global.seed=1 for another seed, -o FP16.enable=False for f32).
 #
 # The extract step loads the backbone into the probe config's model first
-# and fails if any backbone entry would keep its random init. `random` is
-# the floor: no pretraining, the probe over the untrained backbone (the JAX
-# package's reads 0.529, above the bar); a method learned only by as much
-# as its probe clears this floor. It prints its reading and exits 0: it
-# passes or fails no bar.
+# and fails if any backbone entry would keep its random init (MAE's extract
+# writes the global-pool probe's `fc_norm` at a LayerNorm's init, where the
+# JAX package's fresh probe starts it). MoCo v3 probes its ViT encoder (`base.encoder`, re-rooted under
+# `encoder`); MAE's extract keeps the encoder's patch embedding, class
+# token and blocks under `backbone` and injects the fixed sin-cos table the
+# pretrain added as the probe ViT's `pos_embed`, as
+# tests/e2e/run_learning_check.sh:175-212 does. `random`, `random_mocov3` and
+# `random_mae` are the floors: no pretraining, the same probe over the
+# untrained ResNet-18 backbone, MoCo v3 encoder, or MAE encoder (its
+# sin-cos table injected); a method learned only by as much as its probe
+# clears its floor. They print their reading and exit 0: they pass or fail
+# no bar.
 set -euo pipefail
 cd "$(dirname "$0")/../.."
 METHOD=${1:-simclr}
@@ -26,7 +33,9 @@ OUT=${2:-./output/learning_torch_$METHOD}
 shift $(( $# < 2 ? $# : 2 ))
 EXTRA=("$@")
 PROBE_CFG=tests/e2e/probe_structured.yaml
+RENAME=backbone
 BAR=0.5
+PRETRAIN_EXTRA=()
 case "$METHOD" in
   simclr) CFG=tests/e2e/simclr_structured.yaml; PREFIX=backbone ;;
   mocov2) CFG=tests/e2e/mocov2_structured.yaml; PREFIX=encoder_q.backbone ;;
@@ -37,23 +46,88 @@ case "$METHOD" in
   densecl) CFG=tests/e2e/densecl_structured.yaml; PREFIX=encoder_q.backbone ;;
   pixpro) CFG=tests/e2e/pixpro_structured.yaml; PREFIX=encoder.backbone ;;
   fastmoco) CFG=tests/e2e/fastmoco_structured.yaml; PREFIX=online.backbone ;;
+  mocov3) CFG=tests/e2e/mocov3_structured.yaml; PREFIX=base.encoder; RENAME=encoder
+          PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
+  mae)    CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
+          PROBE_CFG=tests/e2e/probe_mae_structured.yaml ;;
   random) CFG=; PREFIX= ;;
+  random_mocov3) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml ;;
+  random_mae) CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
+          PROBE_CFG=tests/e2e/probe_mae_structured.yaml ;;
   *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav |" \
-       "densecl | pixpro | fastmoco | random)"; exit 2 ;;
+       "densecl | pixpro | fastmoco | mocov3 | mae | random | random_mocov3 |" \
+       "random_mae)"; exit 2 ;;
 esac
+FLOOR=$([[ "$METHOD" == random* ]] && echo 1 || echo 0)
 rm -rf "$OUT"
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 start=$(date +%s)
 
-if [ "$METHOD" = random ]; then  # the floor: the probe over the untrained backbone
+if [ "$FLOOR" = 1 ] && [ -z "$CFG" ]; then  # the floor: the probe over the untrained backbone
   PRETRAINED=None
+elif [ "$PREFIX" = __mae__ ]; then
+  # MAE's encoder (of the trained model, or for the floor of the untrained
+  # one, initialised from the pretrain config's seed as the trainer does),
+  # the sin-cos table as pos_embed, fc_norm at init; every probe backbone entry filled
+  if [ "$FLOOR" = 0 ]; then
+    python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
+      -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" | tee "$OUT/pretrain.log"
+  fi
+  python - "$OUT" "$CFG" "$PROBE_CFG" "$FLOOR" <<'PYEOF'
+import sys
+
+import torch
+
+from passl_tpu_torch.models import build_model
+from passl_tpu_torch.nn.init import init_module
+from passl_tpu_torch.tools import extract_weights
+from passl_tpu_torch.utils import cfg_util, io
+
+out, cfg_path, probe, floor = sys.argv[1:]
+cfg = cfg_util.get_config(cfg_path, show=False)
+if floor == "1":
+    model = init_module(build_model(dict(cfg["Model"])),
+                        torch.Generator().manual_seed(int(cfg["Global"]["seed"])))
+    state = model.state_dict()
+else:
+    state = torch.load(io.resolve_checkpoint(f"{out}/pretrain/latest.pt"), map_location="cpu",
+                       weights_only=True)["model"]
+picked = extract_weights.mae_encoder(state, int(cfg["Model"]["img_size"]))
+torch.save(picked, f"{out}/backbone.pt")
+print(f"MAE extract: {len(picked)} tensors (sin-cos pos_embed injected, fc_norm at init)")
+extract_weights.require_filled(probe, f"{out}/backbone.pt", "backbone")
+PYEOF
+  PRETRAINED="$OUT/backbone.pt"
 else
   python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
-    -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" | tee "$OUT/pretrain.log"
+    -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" "${PRETRAIN_EXTRA[@]}" \
+    | tee "$OUT/pretrain.log"
+  if [ "$METHOD" = mocov3 ]; then
+    # the probe cannot tell MoCo v3 from no training (random_mocov3 reads
+    # 0.998): its own loss must fall, over the last epoch to at most
+    # LOSS_BAR of the first step's (with the learning rate at 0 the loss
+    # holds within 2% of its first step's)
+    python - "$OUT/pretrain.log" "$LOSS_BAR" <<'PYEOF'
+import re
+import sys
+
+log, bar = open(sys.argv[1]).read(), float(sys.argv[2])
+rows = [(int(e), float(loss), float(acc1)) for e, loss, acc1 in re.findall(
+    r"\[Train\]\[Epoch (\d+)/\d+\]\[Iter: *\d+/\d+\] .*?loss: ([0-9.]+) acc1: ([0-9.]+)", log)]
+last = [r for r in rows if r[0] == rows[-1][0]]
+loss, acc1 = (sum(r[i] for r in last) / len(last) for i in (1, 2))
+print(f"MoCo v3 pretrain loss: {rows[0][1]:.5f} at the first step (acc1 {rows[0][2]:.5f}), "
+      f"{loss:.5f} over epoch {rows[-1][0]} (acc1 {acc1:.5f}); bar {bar} x the first: "
+      f"{bar * rows[0][1]:.5f}")
+if not loss <= bar * rows[0][1]:
+    raise SystemExit("MoCo v3's pretrain loss did not fall to the bar")
+PYEOF
+  fi
   python -m passl_tpu_torch.tools.extract_weights \
     --checkpoint "$OUT/pretrain/latest.pt" \
-    --prefix "$PREFIX" --rename backbone \
+    --prefix "$PREFIX" --rename "$RENAME" \
     --output "$OUT/backbone.pt" --check-config "$PROBE_CFG"
   PRETRAINED="$OUT/backbone.pt"
 fi
@@ -67,8 +141,8 @@ end=$(date +%s)
 top1=$(grep -oE "top1: [0-9.]+" "$OUT/probe.log" | tail -1 | awk '{print $2}')
 times="wall time $((end - start)) s (pretrain and extract $((pretrained - start)) s, probe"
 times="$times $((end - pretrained)) s)"
-if [ "$METHOD" = random ]; then  # a reading to measure margins by, held to no bar
-  echo "FINAL random-init floor linear-probe top1: $top1 (chance = 0.10); $times"
+if [ "$FLOOR" = 1 ]; then  # a reading to measure margins by, held to no bar
+  echo "FINAL random-init floor ($METHOD) linear-probe top1: $top1 (chance = 0.10); $times"
   exit 0
 fi
 echo "FINAL $METHOD linear-probe top1: $top1 (chance = 0.10, bar = $BAR); $times"

@@ -194,13 +194,13 @@ def _config(tmp_path, *overrides):
     return cfg_util.get_config(TINY_CFG, overrides=[f"Global.output_dir={tmp_path}", *overrides])
 
 
-def _port_buffers(opt_state) -> dict:
+def _port_buffers(opt_state, dtype=np.float32) -> dict:
     """The JAX rule's momentum buffers as the port's, by parameter name."""
     out = {}
     for path, leaf in _flatten(opt_state).items():
         if path.endswith("/buf"):
             name, arr = _torch_name(path[:-len("/buf")], leaf)
-            out[name] = torch.from_numpy(np.array(arr, np.float32))
+            out[name] = torch.from_numpy(np.array(arr, dtype))
     return out
 
 
@@ -208,7 +208,11 @@ def _port_buffers(opt_state) -> dict:
 def jax_run(tmp_path_factory):
     """The JAX engine's first 3 loader batches, its metrics on them, and its
     state (parameters, statistics, queue, momentum buffers) before each of its
-    3 train steps and after the last, in the port's names and layouts."""
+    3 train steps and after the last, in the port's names and layouts; and
+    the momentum buffers after each of those steps taken in f64 from the same
+    state (the model at float64 under `jax.enable_x64(True)`, a context,
+    so no later test of the worker sees x64): JAX's own f32 rounding of each
+    buffer is its distance from them."""
     import jax
 
     from passl_tpu.engine import Engine as JaxEngine
@@ -228,13 +232,35 @@ def jax_run(tmp_path_factory):
         batches.append(b)
         if len(batches) == 3:
             break
-    metrics, states = [], [port_state(je.state)]
+    metrics, states, raw = [], [port_state(je.state)], [jax.device_get(je.state)]
     for b in batches:
         je.state, m = je.train_step(je.state, je.shard_batch(b))
         metrics.append({k: float(v) for k, v in m.items()})
         states.append(port_state(je.state))
+        raw.append(jax.device_get(je.state))
     je.train_dataloader.close()
-    return batches, metrics, states
+
+    def f64(tree):
+        return jax.tree_util.tree_map(
+            lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype == np.float32 else a, tree)
+
+    bufs64 = []
+    with jax.enable_x64(True):  # the context of jax 0.9 (jax.experimental's is gone)
+        je64 = JaxEngine(_config(tmp_path_factory.mktemp("jax64"), *PARITY, "Model.dtype=float64"),
+                         mode="train")
+        for t, b in enumerate(batches):
+            start = raw[t]
+            # the queue stays f32 (the JAX model writes its f32 keys into it), its
+            # pointer goes to int64 beside the x64 literal start index of its write
+            ssl = {"queue": start.model_state["ssl"]["queue"],
+                   "queue_ptr": np.asarray(start.model_state["ssl"]["queue_ptr"], np.int64)}
+            model_state = {k: ssl if k == "ssl" else f64(v) for k, v in start.model_state.items()}
+            state = je64.state.replace(step=start.step, rng=start.rng, params=f64(start.params),
+                                       model_state=model_state, opt_state=f64(start.opt_state))
+            state, _ = je64.train_step(state, je64.shard_batch(b))
+            bufs64.append(_port_buffers(jax.device_get(state.opt_state), np.float64))
+        je64.train_dataloader.close()
+    return batches, metrics, states, bufs64
 
 
 def _to_f64(model: torch.nn.Module) -> None:
@@ -273,7 +299,7 @@ def test_tiny_mocobyol_steps_along_the_jax_engine(tmp_path, jax_run):
     trajectories of the port alone part by 4% in some BatchNorm biases
     after 4 steps, as a BatchNorm bias's gradient is a small remainder of
     large sums."""
-    batches, jax_metrics, states = jax_run
+    batches, jax_metrics, states, jax_bufs64 = jax_run
     engines = [Engine(_config(tmp_path / name, *PARITY), mode="train", device="cpu")
                for name in ("f32", "f64")]
     e, e64 = engines
@@ -311,14 +337,17 @@ def test_tiny_mocobyol_steps_along_the_jax_engine(tmp_path, jax_run):
                 f32_res = (d_port.double() - (final64[name] - before[name].double())).norm().item()
                 tol = 1e-3 * d_jax.norm().item() + 8 * eps32 * p.norm().item() + 1e-8 + 2 * f32_res
                 assert (d_port - d_jax).norm().item() <= tol, (t, name)
-            # the momentum buffers by the same rule (a Dense bias before a BatchNorm
-            # has a gradient of f32 rounding alone, 0 in f64)
-            bufs, bufs64 = (_buffers(x) for x in engines)
-            assert set(bufs) == set(bufs_after)
+            # the momentum buffers, each within 1e-3 of its norm beside twice JAX's
+            # own f32 resolution of it, its f32 step's distance from its f64 step
+            # from the same state (a Dense bias before a BatchNorm has a gradient
+            # of f32 rounding alone, 0 in f64: JAX's rounding of it measures how
+            # far two f32 steps may part there, whatever the port's threads)
+            bufs = _buffers(e)
+            assert set(bufs) == set(bufs_after) == set(jax_bufs64[t])
             assert not any(n.startswith("target.") for n in bufs_after)  # frozen: no state
             for name, buf in bufs_after.items():
-                f32_res = (bufs[name].double() - bufs64[name].double()).norm().item()
-                tol = 1e-3 * buf.norm().item() + 1e-8 + 2 * f32_res
+                jax_res = (buf.double() - jax_bufs64[t][name]).norm().item()
+                tol = 1e-3 * buf.norm().item() + 1e-8 + 2 * jax_res
                 assert (bufs[name] - buf).norm().item() <= tol, (t, name)
     # 3 writes of 8 keys into K = 20: 0, 8, then 16 clamped to 12
     assert ptrs == [8, 16, 4]

@@ -3,8 +3,10 @@
 An AST walk over every module of `passl_tpu_torch/` and `chip_smoke.py`
 refuses any import of `passl_tpu`, `passl_tpu.*` or `jax`; a fresh
 interpreter that imports the port's entry points finds neither in
-`sys.modules`; and the port's own copies of the data pipeline give the JAX
-package's batches bit for bit from the same config and seed.
+`sys.modules`; the port's own copies of the data pipeline give the JAX
+package's batches bit for bit from the same config and seed; and its copy of
+`models/utils/pos_embed.py` is the JAX file under its header, its tables bit
+for bit.
 """
 import ast
 import copy
@@ -123,3 +125,33 @@ def test_port_loader_gives_the_jax_loaders_batches_bitwise(config, size, image_s
     assert images.shape == (batch, image_size, image_size, 3)
     if "vit_base" in config:  # soft labels from Mixup/Cutmix
         assert labels.shape == (batch, 1000) and labels.dtype == np.float32
+
+
+# ---------------------------------------------------------- the model copies
+
+
+def test_pos_embed_copy_is_the_jax_file_under_its_header():
+    """`passl_tpu_torch/models/utils/pos_embed.py` is the JAX package's file
+    (it imports only numpy) under two header lines naming where it came from,
+    and its four functions give the JAX package's tables bit for bit."""
+    from passl_tpu.models.utils import pos_embed as jax_pos
+    from passl_tpu_torch.models.utils import pos_embed as port_pos
+
+    with open(os.path.join(REPO, "passl_tpu", "models", "utils", "pos_embed.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "passl_tpu_torch", "models", "utils", "pos_embed.py")) as f:
+        lines = f.read().split("\n")
+    assert lines[0].startswith("# Copied from passl_tpu/models/utils/pos_embed.py")
+    assert "\n".join(lines[2:]) == jax_src
+    grid = np.stack(np.meshgrid(np.arange(7.0), np.arange(7.0)), 0).reshape(2, 1, 7, 7)
+    for got, want in (
+            (port_pos.get_1d_sincos_pos_embed_from_grid(64, np.arange(9.0)),
+             jax_pos.get_1d_sincos_pos_embed_from_grid(64, np.arange(9.0))),
+            (port_pos.get_2d_sincos_pos_embed_from_grid(64, grid),
+             jax_pos.get_2d_sincos_pos_embed_from_grid(64, grid)),
+            (port_pos.get_2d_sincos_pos_embed(768, 14, cls_token=True),
+             jax_pos.get_2d_sincos_pos_embed(768, 14, cls_token=True)),
+            (port_pos.mocov3_2d_sincos_pos_embed(768, 14, 14),
+             jax_pos.mocov3_2d_sincos_pos_embed(768, 14, 14))):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

@@ -9,7 +9,7 @@ of the flash path (the port's autograd Function on CPU tensors, which runs
 the kernels' plain versions, against the JAX model's library kernels in
 interpret mode, with the JAX package's TPU check answered yes inside the
 test only), the flash path's parameter gradients, the head options, the
-refusals, export -> Predictor on the meta-built model, and 4 train steps of
+refusals (remat is ported: tests/test_torch_vit_remat.py), export -> Predictor on the meta-built model, and 4 train steps of
 configs/classification/vit_tiny_synthetic.yaml (patch 4, f32) on both of
 the port's paths against the JAX engine's einsum path from the same init.
 """
@@ -272,8 +272,6 @@ def test_every_jax_variant_is_ported():
 @pytest.mark.parametrize("kw, error, match", [
     ({"drop_rate": 0.1}, NotImplementedError, "drop_rate"),
     ({"attn_drop_rate": 0.1}, NotImplementedError, "attn_drop_rate"),
-    ({"remat": True}, NotImplementedError, "remat"),
-    ({"remat_policy": "dots"}, NotImplementedError, "remat_policy"),
     ({"pipeline": True}, NotImplementedError, "pipeline"),
     ({"head_init": "uniform"}, ValueError, "head_init"),
     ({"attn_impl": "pallas"}, ValueError, "attn_impl"),
