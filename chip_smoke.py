@@ -4,7 +4,10 @@ Run from the repo root:  python3 chip_smoke.py
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
-   one nvcc per source, side by side.
+   one nvcc per source, side by side, in a thread; meanwhile it takes every
+   SSL phase's first step on the card and on the CPU in f32 and f64 (phases
+   14-29 below hold them; no kernel runs there, and the nvcc processes leave
+   most cores idle after their first seconds).
 3. Holds the talking-heads forward against its plain PyTorch version on the
    card at the shapes CaiT uses, through whichever of its two kernels the C
    entry point picks (warp-row for bf16 / f16 with h <= 8 and k <= 256,
@@ -228,7 +231,42 @@ Run from the repo root:  python3 chip_smoke.py
    197 the flash kernels, 8 launches of each a step; loss finite; resume; the
    first step card vs CPU at 4 images in f32 and f64 with one noise handed to
    both devices, the card's f32 error from f64 at most twice the CPU's.
-27. Prints the card line, a JSON line of the eight kernels' results, and
+27. Trains CLIP ViT-B/32 on configs/clip/clip_vit_b32_in1k.yaml with
+   SyntheticTextImageDataset in place of its captioned images (the config's
+   bicubic crops and CLIP's normalization; 77 tokens of a 49,408 vocabulary):
+   256 pairs, AdamW, bf16, 8 steps, no flash kernel (the JAX model attends
+   with einsum). Checks: the tokens reach the card as int32; the config's
+   no-decay names select logit_scale and both embeddings; the first step's
+   loss within 1 of ln 256 and its logit scale 1 / 0.07; acc1 in [0, 1];
+   the text tower causal in f32 (tokens after each EOT move no feature, one
+   before it moves every feature); resume; the first step card vs CPU at 4
+   pairs in f32 and f64, and the same for the ModifiedResNet tower
+   (CLIP_r50's own vision settings with the config's text tower), the
+   card's f32 error from f64 (the gradients' relative distance) at most
+   twice the CPU's.
+28. Trains DINO ViT-S/16 on configs/dino/dino_vit_s16_pretrain_in1k.yaml:
+   64 images of 2 x 224 + 8 x 96 crops, 65,536 prototypes, AdamW with
+   global-norm clip 3, bf16, 8 steps. Checks: the EMA rule (cosine from
+   0.996) on every teacher parameter after every step; the teacher has no
+   optimizer state; after every step `center` is 0.9 of itself plus 0.1 of
+   the mean of the teacher's outputs; 2 student forwards (one per
+   resolution) and 1 teacher forward a step; resume with `center` bitwise as
+   saved; the first step card vs CPU at 4 images of 10 crops, as CLIP's.
+29. Trains DINOv2 ViT-S/14 on configs/dinov2/dinov2_vit_s14_pretrain_in1k.yaml:
+   32 images of 2 x 224 + 8 x 98 crops, LayerScale 1e-5, bf16, 8 steps.
+   Checks: the masked shares of the 256 patches of every global crop (each
+   within 6 binomial sd of 0.3, their mean within 0.01, their spread within
+   a quarter of the binomial's); the teacher's mask token takes no gradient
+   and moves by the EMA rule alone; loss = dino + ibot + 0.1 koleo; both
+   centers follow their rule; 9 student forwards (the globals, then each
+   local) and 1 teacher forward a step; `layerwise_decay: 0.9` warns and
+   decays nothing, as in JAX; resume with both centers bitwise; the first
+   step card vs CPU at 4 images with one mask noise handed to both devices
+   (at LayerScale 1.0: at 1e-5 KoLeo's f32 distance goes negative at init in
+   both packages' formula).
+   Every SSL phase logs `[time]` lines: where its time goes (the first
+   steps, the main path, the profiled step, the resume).
+30. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -253,11 +291,13 @@ import torch
 import torch.nn.functional as F
 
 from passl_tpu_torch.data import build_dataloader, to_device
+from passl_tpu_torch.data.datasets import SyntheticTextImageDataset
 from passl_tpu_torch.data.loader import PREFETCH_THREAD
 from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
-from passl_tpu_torch.models import mae, moco
+from passl_tpu_torch.engine import engine as engine_mod
+from passl_tpu_torch.models import dino, mae, moco
 from passl_tpu_torch.nn.layers import Attention
 from passl_tpu_torch.nn.norm import SplitBatchNorm
 from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
@@ -379,6 +419,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def _span(tag: str, what: str):
+    """Logs the seconds the block took: where a phase's time goes."""
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {tag} {what}: {time.perf_counter() - t0:.1f} s")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1453,6 +1501,14 @@ class SSLSpec:
     # ViT's attn.qkv weights)
     watched: int = 11
     watch: Optional[Callable[[str], bool]] = None
+    # where set, f32's error is the gradients' relative L2 distance from f64, not
+    # 1 - cosine: through LayerNorm towers f32 lands so close to f64 (2e-7 of the
+    # norm) that 1 - cosine, about half that distance squared, sinks under the
+    # cosine's own f64 rounding (1e-13 over 1e7 entries) and reads noise
+    error_by_distance: bool = False
+    # the fixed draws the first step hands both devices (a context), where the
+    # model draws (MoCo's and DenseCL's permutation, MAE's noise, DINOv2's masks)
+    draws: Optional[Callable[[], contextlib.AbstractContextManager]] = None
 
 
 BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
@@ -1464,7 +1520,8 @@ SIMCLR_SPEC = SSLSpec("SimCLR-R50", os.path.join(REPO, "configs", "simclr",
                       4, ("Model.use_device_augment=False",), "backbone.")
 MOCO_SPEC = SSLSpec("MoCoV2-R50", os.path.join(REPO, "configs", "moco", "mocov2_r50_in1k.yaml"),
                     256,  # the config's own batch, in 8 BatchNorm splits
-                    16, (), "encoder_q.backbone.", "encoder_k.")  # 2 images a split
+                    16, (), "encoder_q.backbone.", "encoder_k.",  # 2 images a split
+                    draws=lambda: _one_permutation(16))
 SIMSIAM_SPEC = SSLSpec("SimSiam-R50", os.path.join(REPO, "configs", "simsiam",
                                                    "simsiam_r50_in1k.yaml"),
                        128,  # pairs: the recipe's 512 over 4 cards
@@ -1489,8 +1546,10 @@ SWAV_SPEC = SSLSpec("SwAV-R50", os.path.join(REPO, "configs", "swav", "swav_r50_
 def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
                 workers: int = WORKERS):
     """The in1k config with synthetic images in place of ImageNet (the
-    config's own host transforms stay; SwAV's multi-crop wrapper keeps its
-    crop stacks around the synthetic images), `batch` images or pairs,
+    config's own host transforms stay; the multi-crop wrapper of SwAV and
+    DINO keeps its crop stacks around the synthetic images; CLIP's captions
+    are `SyntheticTextImageDataset`'s token ids at the config's context
+    length and the model's vocabulary), `batch` images or pairs,
     TRAIN_STEPS steps."""
     config = cfg_util.get_config(spec.config, overrides=[
         f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
@@ -1500,6 +1559,11 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
                  "num_classes": NUM_CLASSES}
     if dl["dataset"]["name"] == "SwAVMultiCropDataset":
         dl["dataset"]["dataset"] = dict(synthetic, transform=None)
+    elif dl["dataset"]["name"] == "TextImageDataset":  # CLIP: synthetic captions too
+        dl["dataset"] = {"name": "SyntheticTextImageDataset", "size": 1024, "image_size": spec.img,
+                         "context_length": dl["dataset"]["context_length"],
+                         "vocab_size": config["Model"].get("vocab_size", 49408),
+                         "transform": dl["dataset"]["transform"]}
     else:  # PixPro's dataset yields no label: with_label stays as the config has it
         dl["dataset"] = dict(synthetic, transform=dl["dataset"]["transform"],
                              **{k: v for k, v in dl["dataset"].items() if k == "with_label"})
@@ -1508,20 +1572,26 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
     return config
 
 
+def _check_images(engine: Engine, batch) -> None:
+    """The images of a batch (views, crops, PixPro's dict of views and boxes,
+    CLIP's of images and tokens) reach the device uint8 where the model
+    augments on the device or takes raw crops (BYOL, SimCLR), f32 where the
+    host normalizes (the rest)."""
+    dtypes = {v.dtype for v in (batch.values() if isinstance(batch, dict) else batch)
+              if v.dim() == 4}  # the images: not MAE's labels, boxes or tokens
+    host_normalized = "NormalizeImage" in json.dumps(engine.config["DataLoader"]["Train"]["dataset"])
+    check(dtypes == {torch.float32 if host_normalized else torch.uint8},
+          f"views reach the device as {dtypes}")
+
+
 def _ssl_first_batch(engine: Engine, device: str):
-    """Epoch 1's first batch of views (or crops, or PixPro's dict of views and
-    boxes); uint8 where the model augments on the device or takes raw crops
-    (BYOL, SimCLR), f32 where the host normalizes (the rest)."""
+    """Epoch 1's first batch, built as the engine's loader builds it, on `device`."""
     dl = dict(engine.config["DataLoader"]["Train"], loader={"num_workers": 0, "prefetch": 0})
     loader = build_dataloader(dl, "Train", seed=engine.seed)
     loader.set_epoch(1)
-    batch = engine.prepare_batch(next(iter(loader)))
-    dtypes = {np.asarray(v).dtype for v in (batch.values() if isinstance(batch, dict) else batch)
-              if np.asarray(v).ndim > 1}  # not MAE's labels
-    host_normalized = "NormalizeImage" in json.dumps(dl["dataset"])
-    check(dtypes == {np.dtype(np.float32 if host_normalized else np.uint8)},
-          f"views reach the device as {dtypes}")
-    return to_device(batch, torch.device(device))
+    batch = to_device(engine.prepare_batch(next(iter(loader))), torch.device(device))
+    _check_images(engine, batch)
+    return batch
 
 
 def _to_f64(model: torch.nn.Module) -> None:
@@ -1536,19 +1606,31 @@ def _to_f64(model: torch.nn.Module) -> None:
             m.dtype = m.softmax_dtype = torch.float64
 
 
-def _ssl_first_step(spec: SSLSpec, tmp: str, device: str, f64: bool) -> tuple[float, dict]:
-    e = Engine(_ssl_config(spec, os.path.join(tmp, f"grads_{device}_{f64}"), spec.grad_batch,
-                           "FP16.enable=False", *spec.grad_overrides),
-               mode="train", device=device)
-    if f64:
-        _to_f64(e.model)
-    loss = float(e.train_step.forward_backward(e.state, _ssl_first_batch(e, device))["loss"])
-    grads = {n: p.grad.detach().double().cpu().clone() for n, p in e.model.named_parameters()
-             if not (spec.no_grad and n.startswith(spec.no_grad))}  # the EMA tower takes none
+def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
+    """{(device, f64): (loss, grads)} of the first step on the card and on the
+    CPU, in f32 and in f64, from one engine: each run starts from the engine's
+    init (parameters and buffers: a step moves BatchNorm statistics, queues,
+    centers) and a fresh generator seeded as the engine seeds it, on its device."""
+    e = Engine(_ssl_config(spec, os.path.join(tmp, "grads"), spec.grad_batch,
+                           "FP16.enable=False", *spec.grad_overrides, workers=0),
+               mode="train", device="cpu")
+    init = {k: v.clone() for k, v in e.model.state_dict().items()}
+    batches = {d: _ssl_first_batch(e, d) for d in ("cuda", "cpu")}
+    runs = {}
+    for f64 in (False, True):
+        if f64:
+            _to_f64(e.model)
+        for device in ("cuda", "cpu"):
+            e.model.to(device).load_state_dict(init)  # f64 parameters take the f32 init exactly
+            e.state.generator = torch.Generator(device=device).manual_seed(e.seed + 1)
+            loss = float(e.train_step.forward_backward(e.state, batches[device])["loss"])
+            runs[device, f64] = loss, {  # the EMA tower takes no gradient
+                n: p.grad.detach().double().cpu().clone() for n, p in e.model.named_parameters()
+                if not (spec.no_grad and n.startswith(spec.no_grad))}
     e.close()
-    del e
+    del e, batches
     torch.cuda.empty_cache()
-    return loss, grads
+    return runs
 
 
 def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
@@ -1561,24 +1643,34 @@ def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
     watched = [n for n in names if spec.watch(n)] if spec.watch else [
         n for n in names if g_a[n].dim() == 4 and (
             n == f"{spec.backbone}conv1.weight" or n.startswith(f"{spec.backbone}layer4."))]
-    what = "qkv weights" if spec.watch else "stem/layer4 convs"
+    what = "watched weights" if spec.watch else "stem/layer4 convs"
     check(len(watched) == spec.watched, f"{spec.tag}: {len(watched)} {what}, want {spec.watched}")
     cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in watched}
     worst = min(cos_conv, key=cos_conv.get)
     rel = abs(l_a - l_b) / max(abs(l_b), spec.loss_scale)
+    flat_b = torch.cat([g_b[n].flatten() for n in names])
+    dist = ((torch.cat([g_a[n].flatten() for n in names]) - flat_b).norm() / flat_b.norm()).item()
     unit = "pairs" if spec.views == 2 else "images"
     log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} {unit}): loss {l_a:.9f} vs "
         f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
-        f"{len(watched)} {what} {cos_conv[worst]:.9f} ({worst})")
-    return {"loss_rel": rel, "grad_cos": cos_all, "grad_cos_min_conv": cos_conv[worst]}
+        f"{len(watched)} {what} {cos_conv[worst]:.9f} ({worst}), relative distance {dist:.3g}")
+    return {"loss_rel": rel, "grad_cos": cos_all, "grad_cos_min_conv": cos_conv[worst],
+            "grad_rel_dist": dist}
+
+
+_FIRST_STEPS: dict = {}  # spec tag -> its first steps' record, taken while the kernels build
 
 
 def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     """The first step's loss and gradients on the card against the same step
     on the CPU, from the same init and batch, in f32 (TF32 off) and in f64;
-    and, as the yardstick of f32 rounding, f32 against f64 on the CPU."""
-    runs = {(d, f64): _ssl_first_step(spec, tmp, d, f64) for f64 in (False, True)
-            for d in ("cuda", "cpu")}
+    and, as the yardstick of f32 rounding, f32 against f64 on the CPU. A record
+    `phase_first_steps` took already is handed over instead."""
+    if spec.tag in _FIRST_STEPS:
+        return _FIRST_STEPS.pop(spec.tag)
+    with _span(spec.tag, "first steps, card vs CPU, f32 and f64"), (
+            spec.draws() if spec.draws else contextlib.nullcontext()):
+        runs = _ssl_first_steps(spec, tmp)
     f32 = _grad_agreement(spec, "f32, card vs CPU", runs["cuda", False], runs["cpu", False])
     f64 = _grad_agreement(spec, "f64, card vs CPU", runs["cuda", True], runs["cpu", True])
     ref = _grad_agreement(spec, "CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
@@ -1591,10 +1683,12 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
         check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
               f"{spec.tag} card vs CPU first step: {rec}")
     if spec.f32_error_ratio:
-        log(f"[train] {spec.tag} first step: the card's f32 error from f64 is "
-            f"{(1 - card['grad_cos']) / max(1 - ref['grad_cos'], 1e-30):.4g} times the CPU's "
-            f"(limit {spec.f32_error_ratio})")
-        check(1 - card["grad_cos"] <= spec.f32_error_ratio * (1 - ref["grad_cos"]),
+        err_card, err_cpu = ((r["grad_rel_dist"] if spec.error_by_distance else 1 - r["grad_cos"])
+                             for r in (card, ref))
+        log(f"[train] {spec.tag} first step: the card's f32 error from f64 "
+            f"({'relative distance' if spec.error_by_distance else '1 - cosine'}) is "
+            f"{err_card / max(err_cpu, 1e-30):.4g} times the CPU's (limit {spec.f32_error_ratio})")
+        check(err_card <= spec.f32_error_ratio * err_cpu,
               f"{spec.tag} the card's f32 {card} further from f64 than {spec.f32_error_ratio} "
               f"times the CPU's f32 {ref}")
     else:  # the card and the CPU in f32 agree at least as well as the CPU's f32 and f64
@@ -1632,6 +1726,25 @@ class _EmaCheck:
         return getattr(self.step_fn, name)
 
 
+def _main_path(tag: str, engine: Engine):
+    """The phase's main path, `Engine.train()` for TRAIN_STEPS steps, as
+    tools/train runs it; returns the first batch its loader handed the train
+    step (epoch 1's first, on the card: the profiled step's batch)."""
+    step_fn, first = engine.train_step, []
+
+    def step(state, batch):
+        if not first:
+            first.append(batch)
+        return step_fn(state, batch)
+
+    engine.train_step = step
+    with _span(tag, f"main path, {TRAIN_STEPS} steps"):
+        engine.train()
+    engine.train_step = step_fn
+    _check_images(engine, first[0])
+    return first[0]
+
+
 def _ssl_report(spec: SSLSpec, engine: Engine, batch, loss_range=(0.0, float("inf"))) -> dict:
     """The main path's losses (and acc1, where the method reports it) over
     TRAIN_STEPS steps, step time, pairs/s and views/s, reader share, peak
@@ -1654,8 +1767,9 @@ def _ssl_report(spec: SSLSpec, engine: Engine, batch, loss_range=(0.0, float("in
     log(f"[train] {spec.tag} bf16: losses " + ", ".join(f"{v:.5f}" for v in losses)
         + (("; acc1 " + ", ".join(f"{a:.4f}" for a in accs)) if accs else "") + "; " + _fmt(rep))
     prof: dict = {}
-    log(f"[profile] {spec.tag} train step, bf16: "
-        f"{_profile(lambda: float(engine.train_step(engine.state, batch)['loss']), prof)}")
+    with _span(spec.tag, "profiled step"):
+        log(f"[profile] {spec.tag} train step, bf16: "
+            f"{_profile(lambda: float(engine.train_step(engine.state, batch)['loss']), prof)}")
     rep.update(busy_ms=prof["busy_ms"], idle_share=1 - prof["busy_ms"] / prof["wall_ms"])
     return rep
 
@@ -1664,6 +1778,7 @@ def _ssl_resume(spec: SSLSpec, tmp: str, ckpt: str, on_first_step=None,
                 overrides: tuple = ()) -> None:
     """One more step from the checkpoint (`on_first_step(engine)` runs on the
     restored state before it), as tools/train resumes."""
+    t0 = time.perf_counter()
     e_r = Engine(_ssl_config(spec, os.path.join(tmp, "resume"), spec.batch,
                              f"Global.checkpoint={ckpt}",
                              f"Global.max_train_step={TRAIN_STEPS + 1}", *overrides, workers=0),
@@ -1683,6 +1798,7 @@ def _ssl_resume(spec: SSLSpec, tmp: str, ckpt: str, on_first_step=None,
           and np.isfinite(hist[0]["loss"]), f"{spec.tag} resume: history {hist}")
     log(f"[train] {spec.tag} resumed from {ckpt} at step {TRAIN_STEPS}, trained step "
         f"{hist[0]['step']}: loss {hist[0]['loss']:.5f}")
+    log(f"[time] {spec.tag} resume: {time.perf_counter() - t0:.1f} s")
     del e_r
     torch.cuda.empty_cache()
 
@@ -1711,11 +1827,10 @@ def phase_train_byol() -> dict:
               and type(e.optimizer.torch_optimizer).__name__ == "MomentumLARS",
               "BYOL-R50: not the recipe's bf16 / device augment / LARS")
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         e.train_step = ema
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         _no_optimizer_state_on(spec, e)
         _stats_moved(spec, e, stats0, ("online.", "target."))
@@ -1776,9 +1891,8 @@ def phase_train_simclr() -> dict:
               and e.config["LRScheduler"]["name"] == "simclrCosineWarmup",
               "SimCLR-R50: not the recipe's bf16 / device augment / LARS / simclrCosineWarmup")
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         _stats_moved(spec, e, stats0, ("backbone.", "neck."))
         ckpt = os.path.join(tmp, "bf16", "latest.pt")
         check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no SimCLR-R50 checkpoint")
@@ -1840,8 +1954,7 @@ def phase_train_moco() -> dict:
     spec = MOCO_SPEC
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        with _one_permutation(spec.grad_batch):
-            out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update(_grads_card_vs_cpu(spec, tmp))
         e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
                    device="cuda")
         splits = {m.num_splits for m in e.model.modules() if isinstance(m, SplitBatchNorm)}
@@ -1850,12 +1963,11 @@ def phase_train_moco() -> dict:
               and e.config["Optimizer"]["name"] == "Momentum",
               f"MoCoV2-R50: not the recipe's bf16 / bn_splits 8 ({splits}) / K 65,536 / Momentum")
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         queue = _QueueCheck(spec.tag, e)
         queue.step_fn, e.train_step = ema, queue
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         check(ema.m_fn(0) == ema.m_fn(TRAIN_STEPS) == float(np.float32(0.999)),
               "MoCoV2-R50: the key encoder's momentum is not the constant 0.999")
@@ -1894,9 +2006,8 @@ def phase_train_simsiam() -> dict:
               and e.config["Optimizer"]["name"] == "Momentum",
               "SimSiam-R50: not the recipe's bf16 / Momentum")
         stats0 = {k: v.clone() for k, v in e.model.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         _stats_moved(spec, e, stats0, ("encoder.", "predictor."))
         ckpt = os.path.join(tmp, "bf16", "latest.pt")
         check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no SimSiam-R50 checkpoint")
@@ -1958,12 +2069,11 @@ def phase_train_mocobyol() -> dict:
         log(f"[train] MoCoBYOL-R50 host transforms: the config asks for cv2; cv2 importable: "
             f"{host_transforms._HAS_CV2}; the transforms run {backends}")
         stats0 = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         queue = _QueueCheck(spec.tag, e)
         queue.step_fn, e.train_step = ema, queue
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         m0, m_end = ema.m_fn(0), ema.m_fn(TRAIN_STEPS)
         check(abs(m0 - 0.99) <= 1e-6 and 0.99 < m_end < 1.0,
@@ -2058,15 +2168,14 @@ def phase_train_swav() -> dict:
               and e.optimizer.group_of("prototypes.weight").freeze_steps == SWAV_FREEZE,
               "SwAV-R50: not the recipe's bf16 / 2 + 6 crops / 3,000 f32 prototypes / LARS / "
               f"a freeze of {SWAV_FREEZE}")
-        batch = _ssl_first_batch(e, "cuda")
-        check([tuple(c.shape[1:3]) for c in batch] == [(IMG, IMG)] * 2 + [(96, 96)] * 6,
-              f"SwAV-R50 crops {[tuple(c.shape) for c in batch]}")
         stem_calls = []
         hook = m.backbone.bn1.register_forward_hook(lambda *_: stem_calls.append(1))
         proto = _PrototypeCheck(e)
         e.train_step = proto
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
+        check([tuple(c.shape[1:3]) for c in batch] == [(IMG, IMG)] * 2 + [(96, 96)] * 6,
+              f"SwAV-R50 crops {[tuple(c.shape) for c in batch]}")
         e.train_step = proto.step_fn
         hook.remove()
         check(len(stem_calls) == 2 * TRAIN_STEPS,
@@ -2096,7 +2205,7 @@ DENSECL_SPEC = SSLSpec("DenseCL-R50", os.path.join(REPO, "configs", "densecl",
                                                    "densecl_r50_in1k.yaml"),
                        256,  # the config's own batch, in 8 BatchNorm splits
                        16, (), "encoder_q.backbone.", "encoder_k.",  # 2 images a split
-                       f32_error_ratio=2.0)
+                       f32_error_ratio=2.0, draws=lambda: _one_permutation(16))
 PIXPRO_SPEC = SSLSpec("PixPro-R50", os.path.join(REPO, "configs", "pixpro", "pixpro_r50_in1k.yaml"),
                       128,  # pairs: the recipe's 1,024 over 8 cards
                       4, (), "encoder.backbone.", "encoder_k.", f32_error_ratio=2.0)
@@ -2111,8 +2220,7 @@ def phase_train_densecl() -> dict:
     spec = DENSECL_SPEC
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        with _one_permutation(spec.grad_batch):
-            out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update(_grads_card_vs_cpu(spec, tmp))
         e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
                    device="cuda")
         m = e.model
@@ -2124,12 +2232,11 @@ def phase_train_densecl() -> dict:
               f"DenseCL-R50: not the recipe's bf16 / bn_splits 8 ({splits}) / two queues of "
               "128 x 65,536 / Momentum")
         stats0 = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         queue = _QueueCheck(spec.tag, e, ("queue", "queue2"))
         queue.step_fn, e.train_step = ema, queue
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         check(ema.m_fn(0) == ema.m_fn(TRAIN_STEPS) == float(np.float32(0.999)),
               "DenseCL-R50: the key encoder's momentum is not the constant 0.999")
@@ -2189,11 +2296,10 @@ def phase_train_pixpro() -> dict:
 
         hook = m.register_forward_pre_hook(record)
         stats0 = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         e.train_step = ema
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         hook.remove()
         views, boxes = ((spec.batch, IMG, IMG, 3), torch.float32, "cuda"), \
@@ -2238,11 +2344,10 @@ def phase_train_fastmoco() -> dict:
         hook = m.predictor.register_forward_pre_hook(lambda mod, args: rows.append(
             tuple(args[0].shape)))
         stats0 = {k: v.clone() for k, v in m.state_dict().items() if "running" in k}
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         e.train_step = ema
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         hook.remove()
         # C(4, 2) = 6 combinations of each image's patches, once a view
@@ -2525,14 +2630,13 @@ def phase_train_mocov3() -> dict:
               and type(e.optimizer.torch_optimizer).__name__ == "AdamW",
               "MoCoV3-ViT-B/16: not the recipe's bf16 / stop_grad_conv1 / 12 flash blocks / "
               "heads 4096 -> 256 / AdamW")
-        batch = _ssl_first_batch(e, "cuda")
         ema = _EmaCheck(spec.tag, e)
         stop = _StopGradCheck(spec.tag, e)
         stop.step_fn, e.train_step = ema, stop
         want = (4 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS)
         _reset_launches(VIT_TRAIN)
         torch.cuda.reset_peak_memory_stats()
-        e.train()  # the main path, as tools/train runs it
+        batch = _main_path(spec.tag, e)
         e.train_step = ema.step_fn
         _flash_step_launches(spec.tag, TRAIN_STEPS, want)
         check(len(ema.dst) == len(list(m.momentum.parameters()))
@@ -2606,7 +2710,7 @@ MAE_SPEC = SSLSpec(
     256,  # images: the JAX package's bench row (bench.py:279)
     4, ("Model.attn_impl=einsum",), "", overrides=("Model.attn_impl=flash",), views=1,
     f32_error_ratio=2.0, watched=MAE_ENCODER_BLOCKS + MAE_DECODER_BLOCKS,
-    watch=lambda n: n.endswith("attn.qkv.weight"))
+    watch=lambda n: n.endswith("attn.qkv.weight"), draws=lambda: _one_noise(4, MAE_PATCHES))
 MAE_PATCHES, MAE_MASKED = 196, 147  # 14 x 14 patches, 75% masked: 49 stay, 50 tokens with cls
 
 
@@ -2614,8 +2718,7 @@ def phase_train_mae() -> dict:
     spec = MAE_SPEC
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        with _one_noise(spec.grad_batch, MAE_PATCHES):
-            out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update(_grads_card_vs_cpu(spec, tmp))
         e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
                    device="cuda")
         m = e.model
@@ -2626,12 +2729,11 @@ def phase_train_mae() -> dict:
               and m.blocks[0].attn.attn_impl == "flash",
               "MAE-ViT-B/16: not the recipe's bf16 / 12 + 8 flash blocks / decoder 512 wide, "
               "16 heads of 32 / norm-pix loss")
-        batch = _ssl_first_batch(e, "cuda")
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(VIT_TRAIN)
         with _MaskCheck(MAE_MASKED) as masks, warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            e.train()  # the main path, as tools/train runs it
+            batch = _main_path(spec.tag, e)
         # the encoder's 50 tokens fall back to einsum with the JAX package's
         # warning; the decoder's 197 take the flash kernels
         per_step = (MAE_DECODER_BLOCKS,) * 3
@@ -2650,6 +2752,383 @@ def phase_train_mae() -> dict:
         torch.cuda.empty_cache()
         _ssl_resume(spec, tmp, ckpt)
     return out
+
+
+CLIP_CONFIG = os.path.join(REPO, "configs", "clip", "clip_vit_b32_in1k.yaml")
+CLIP_BLOCKS = 12  # of each tower
+CLIP_SPEC = SSLSpec(
+    "CLIP-ViT-B/32", CLIP_CONFIG,
+    256,  # pairs: the config's 4,096 over 16 cards
+    4, (), "visual.", f32_error_ratio=2.0, error_by_distance=True, watched=2 * CLIP_BLOCKS,
+    watch=lambda n: n.endswith("attn_qkv.weight"))
+# the ModifiedResNet tower: the variant's own vision settings (embed 1024, (3, 4, 6, 3),
+# width 64) with the in1k config's text tower; its first step alone
+CLIP_R50_MODEL = {"name": "CLIP_r50", "context_length": 77, "vocab_size": 49408,
+                  "transformer_width": 512, "transformer_heads": 8, "transformer_layers": 12}
+CLIP_R50_SPEC = SSLSpec(
+    "CLIP-R50", CLIP_CONFIG, 0, 4, (f"Model={CLIP_R50_MODEL}",), "visual.", f32_error_ratio=2.0,
+    error_by_distance=True,
+    watched=11,  # the stem's first convolution and layer4's ten
+    watch=lambda n: n.endswith(".weight") and "conv" in n and (
+        n == "visual.conv1.weight" or n.startswith("visual.layer4_")))
+
+
+def _causal_check(model: torch.nn.Module) -> dict:
+    """The trained model's text tower, set to compute in f32, where it lies:
+    every token after each sequence's EOT changed leaves `encode_text` as it
+    was (1e-6 of its largest entry); the token after the start token changed
+    moves every sequence's feature."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32  # the parameters are f32 already
+    model.eval()
+    device = next(model.parameters()).device
+    captions = SyntheticTextImageDataset(size=64, image_size=8, context_length=77)
+    text = torch.from_numpy(np.stack([captions[i]["text"] for i in range(64)])).to(device)
+    eot = text.argmax(dim=1)
+    g = torch.Generator(device=device).manual_seed(1)
+    cols = torch.arange(text.shape[1], device=device)
+    noise = torch.randint(1, 49406, text.shape, generator=g, device=device, dtype=text.dtype)
+    after = torch.where(cols[None] > eot[:, None], noise, text)
+    before = text.clone()
+    before[:, 1] = torch.where(text[:, 1] == 7, 8, 7).to(text.dtype)
+    check(bool((eot >= 2).all()) and not torch.equal(after, text), "CLIP: no tokens after an EOT")
+    with torch.no_grad():
+        base, moved_after, moved_before = (model.encode_text(t) for t in (text, after, before))
+    scale = base.abs().max().item()
+    after_err = (moved_after - base).abs().max().item() / scale
+    before_min = (moved_before - base).abs().amax(dim=1).min().item() / scale
+    log(f"[train] CLIP-ViT-B/32 causal mask, f32, 64 captions: tokens after the EOT move the "
+        f"feature by {after_err:.3g} of its largest entry, the token before it by at least "
+        f"{before_min:.3g}")
+    check(after_err <= 1e-6 and before_min > 1e-4,
+          f"CLIP: the text tower is not causal ({after_err}, {before_min})")
+    return {"causal_after_eot_rel": after_err, "causal_before_eot_min_rel": before_min}
+
+
+def phase_train_clip() -> dict:
+    spec = CLIP_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update({f"r50_{k}": v for k, v in _grads_card_vs_cpu(CLIP_R50_SPEC, tmp).items()})
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and len(m.visual.resblocks) == CLIP_BLOCKS
+              and len(m.transformer_resblocks) == CLIP_BLOCKS
+              and tuple(m.visual.conv1.weight.shape) == (768, 3, 32, 32)
+              and tuple(m.token_embedding.embedding.shape) == (49408, 512)
+              and tuple(m.positional_embedding.shape) == (77, 512)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW",
+              "CLIP-ViT-B/32: not the recipe's bf16 / 12 + 12 blocks / patch 32 / 49,408 x 512 "
+              "token table / 77 positions / AdamW")
+        no_wd = [n for n in ("logit_scale", "positional_embedding", "visual.class_embedding")
+                 if e.optimizer.group_of(n).weight_decay == 0.0]
+        check(len(no_wd) == 3 and e.optimizer.group_of("text_projection").weight_decay == 0.2,
+              f"CLIP-ViT-B/32: the no-decay groups are {no_wd}")
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        check(batch["text"].dtype == torch.int32 and tuple(batch["text"].shape) == (spec.batch, 77),
+              f"CLIP-ViT-B/32: the captions reach the card as {batch['text'].dtype}")
+        hist = e.train_loop.history
+        first = hist[0]
+        check(abs(first["loss"] - np.log(spec.batch)) <= 1.0 and
+              abs(first["logit_scale"] - 1 / 0.07) <= 1e-4,
+              f"CLIP-ViT-B/32: the first step's loss {first['loss']} is not within 1 of "
+              f"ln {spec.batch}, or its logit scale {first['logit_scale']} is not 1 / 0.07")
+        log(f"[train] CLIP-ViT-B/32: first step loss {first['loss']:.5f} (ln {spec.batch} = "
+            f"{np.log(spec.batch):.5f}), logit scale {first['logit_scale']:.6f} -> "
+            f"{hist[-1]['logit_scale']:.6f}; the captions reach the card as int32")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no CLIP-ViT-B/32 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        out.update(_causal_check(m))  # the last use of the trained model
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _CenterCheck:
+    """Wraps DINO's and DINOv2's train step: after every step each center is
+    m center_prev + (1 - m) mean of the teacher's raw outputs (DINO: over its
+    rows; DINOv2: `cls_center` over the class tokens', `patch_center` over
+    the patch tokens'), within f32 rounding; counts the towers' forwards."""
+
+    def __init__(self, tag: str, engine: Engine, centers: dict):
+        self.tag, self.engine, self.step_fn = tag, engine, engine.train_step
+        self.centers = centers  # buffer name -> the rows of the teacher's output it averages
+        self.means: dict = {}
+        self.forwards = {"student": 0, "teacher": 0}
+        self.worst = 0.0
+        model = engine.model
+        self.handles = [getattr(model, tower).register_forward_hook(self._hook(tower))
+                        for tower in self.forwards]
+
+    def _hook(self, tower: str):
+        def hook(module, args, output):
+            self.forwards[tower] += 1
+            if tower == "teacher":  # keep the means only: DINOv2's outputs are GBs
+                with torch.no_grad():
+                    self.means = {name: rows(output).reshape(-1, output.shape[-1]).mean(
+                        0, keepdim=True) for name, rows in self.centers.items()}
+        return hook
+
+    def remove(self) -> None:
+        """Takes the hooks off (before the profiled step)."""
+        for h in self.handles:
+            h.remove()
+
+    def __call__(self, state, batch):
+        model = self.engine.model
+        prev = {name: getattr(model, name).clone() for name in self.centers}
+        metrics = self.step_fn(state, batch)
+        mom = model.center_momentum
+        for name, old in prev.items():
+            want = mom * old + (1 - mom) * self.means[name]
+            got = getattr(model, name)
+            err = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+            self.worst = max(self.worst, err)
+        check(self.worst <= 1e-6, f"{self.tag}: a center left its rule at step {state.step}: "
+                                  f"{self.worst}")
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+DINO_BLOCKS = 12
+DINO_SPEC = SSLSpec(
+    "DINO-ViT-S/16", os.path.join(REPO, "configs", "dino", "dino_vit_s16_pretrain_in1k.yaml"),
+    64,  # images of 2 x 224 + 8 x 96 crops: the config's 1,024 over 16 cards
+    4, (), "student.backbone.", "teacher.", views=10, f32_error_ratio=2.0, error_by_distance=True,
+    watched=DINO_BLOCKS,
+    watch=lambda n: n.startswith("student.backbone.blocks.") and n.endswith("attn.qkv.weight"))
+
+
+def _dino_resume_check(spec: SSLSpec, e: Engine, names) -> Callable:
+    saved = {k: e.model.state_dict()[k].clone() for k in names}
+
+    def restored(engine):
+        state = engine.model.state_dict()
+        check(all(torch.equal(state[k], v) for k, v in saved.items()),
+              f"{spec.tag}: a resumed center differs from the checkpoint's")
+        log(f"[train] {spec.tag} resume: {', '.join(names)} bitwise as saved")
+
+    return restored
+
+
+def _dino_checks(spec: SSLSpec, e: Engine, ema: "_EmaCheck", centers: _CenterCheck,
+                 momentum: float) -> None:
+    m0, m_last = ema.m_fn(0), ema.m_fn(TRAIN_STEPS - 1)
+    cosine = 1 - (1 - momentum) * (np.cos(np.pi * (TRAIN_STEPS - 1) / e.total_steps) + 1) / 2
+    check(abs(m0 - momentum) <= 1e-6 and abs(m_last - cosine) <= 1e-7
+          and len(ema.dst) == len(list(e.model.teacher.parameters())),
+          f"{spec.tag}: the EMA is not the cosine from {momentum} over every teacher "
+          f"parameter: {m0}, {m_last}, {len(ema.dst)}")
+    _no_optimizer_state_on(spec, e)
+    log(f"[train] {spec.tag}: the EMA rule (cosine from {momentum}, m {m0:.6f} -> {m_last:.6f}) "
+        f"held at every step on all {len(ema.dst)} teacher parameters (max rel err "
+        f"{ema.worst:.3g}); the teacher has no optimizer state; the centers followed their rule "
+        f"(max rel err {centers.worst:.3g}); forwards a step: student "
+        f"{centers.forwards['student'] / TRAIN_STEPS:g}, teacher "
+        f"{centers.forwards['teacher'] / TRAIN_STEPS:g}")
+
+
+def phase_train_dino() -> dict:
+    spec = DINO_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and len(m.student.backbone.blocks) == 12
+              and m.student.backbone.embed_dim == 384 and m.student.backbone.patch_size == 16
+              and tuple(m.student.head.prototypes.shape) == (256, 65536)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and e.grad_clip is not None and e.grad_clip.clip_norm == 3.0,
+              "DINO-ViT-S/16: not the recipe's bf16 / 12 blocks of 384 in 16 px patches / "
+              "65,536 prototypes of 256 / AdamW / global-norm clip 3")
+        ema = _EmaCheck(spec.tag, e)
+        centers = _CenterCheck(spec.tag, e, {"center": lambda t: t})
+        centers.step_fn, e.train_step = ema, centers
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        check([tuple(c.shape[1:3]) for c in batch] == [(224, 224)] * 2 + [(96, 96)] * 8,
+              f"DINO-ViT-S/16: crops {[tuple(c.shape) for c in batch]}")
+        e.train_step = ema.step_fn
+        centers.remove()
+        check(centers.forwards == {"student": 2 * TRAIN_STEPS, "teacher": TRAIN_STEPS},
+              f"DINO-ViT-S/16: forwards {centers.forwards} in {TRAIN_STEPS} steps, want 2 student "
+              "(one per resolution) and 1 teacher a step")
+        _dino_checks(spec, e, ema, centers, 0.996)
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no DINO-ViT-S/16 checkpoint")
+        restored = _dino_resume_check(spec, e, ("center",))
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)),
+                   ema_max_rel_err=ema.worst, center_max_rel_err=centers.worst)
+        del e, m, batch, ema, centers
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt, restored)
+    return out
+
+
+DINOV2_SPEC = SSLSpec(
+    "DINOv2-ViT-S/14", os.path.join(REPO, "configs", "dinov2",
+                                    "dinov2_vit_s14_pretrain_in1k.yaml"),
+    32,  # images of 2 x 224 + 8 x 98 crops: 1,024 over 32 cards
+    # LayerScale 1.0 for the first step: at the config's 1e-5 every crop's class
+    # features coincide to 6e-9 at init, under f32's rounding of KoLeo's 2 - 2 f.f'
+    # (2.4e-7), which then goes negative and its sqrt NaN on both devices, as the
+    # JAX formula does (the bf16 main path spreads them to 8e-6)
+    4, ("Model.backbone.init_values=1.0",), "student.backbone.", "teacher.", views=10,
+    f32_error_ratio=2.0, error_by_distance=True, watched=DINO_BLOCKS,
+    watch=lambda n: n.startswith("student.backbone.blocks.") and n.endswith("attn.qkv.weight"),
+    draws=lambda: _one_mask_noise(8, DINOV2_PATCHES))  # the 2 x 4 global crops
+DINOV2_PATCHES = 256  # 16 x 16 patches of 14 px at 224
+
+
+@contextlib.contextmanager
+def _one_mask_noise(n: int, length: int):
+    """DINOv2's masks draw one fixed noise [n, length] on every device."""
+    noise = torch.from_numpy(np.random.RandomState(17).rand(n, length).astype(np.float32))
+    orig = dino.masking_noise
+    dino.masking_noise = lambda n_, l_, generator, device: noise.to(device)
+    try:
+        yield
+    finally:
+        dino.masking_noise = orig
+
+
+def phase_train_dinov2() -> dict:
+    spec = DINOV2_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        warned = []
+        with _warnings_of(engine_mod.logger, warned):
+            e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                       device="cuda")
+        m = e.model
+        blocks = m.student.backbone.blocks
+        check(e.policy.compute_dtype == torch.bfloat16 and len(blocks) == 12
+              and blocks[0].init_values == 1e-5 and m.student.backbone.patch_size == 14
+              and tuple(m.teacher.backbone.mask_token.shape) == (1, 1, 384)
+              and tuple(m.student.head.prototypes.shape) == (256, 65536)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and e.grad_clip is not None and e.grad_clip.clip_norm == 3.0,
+              "DINOv2-ViT-S/14: not the recipe's bf16 / 12 LayerScale (1e-5) blocks of 384 in "
+              "14 px patches / a teacher mask token / 65,536 prototypes / AdamW / clip 3")
+        scales = {e.optimizer.group_of(n).lr_scale for n, _ in m.named_parameters()}
+        check(e.config["Optimizer"]["layerwise_decay"] == 0.9 and scales == {1.0}
+              and any("layerwise_decay" in w for w in warned),
+              f"DINOv2-ViT-S/14: layerwise_decay 0.9 should warn and decay nothing, as the JAX "
+              f"engine does (lr scales {scales}, warnings {warned})")
+        ema = _EmaCheck(spec.tag, e)
+        centers = _CenterCheck(spec.tag, e, {"cls_center": lambda t: t[:, 0],
+                                             "patch_center": lambda t: t[:, 1:]})
+        centers.step_fn, e.train_step = ema, centers
+        masks = []
+        spy = m.student.backbone.register_forward_hook(
+            lambda mod, args, output: masks.append(args[1].float().mean(1).cpu())
+            if len(args) > 1 and args[1] is not None else None)
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        check([tuple(c.shape[1:3]) for c in batch] == [(224, 224)] * 2 + [(98, 98)] * 8,
+              f"DINOv2-ViT-S/14: crops {[tuple(c.shape) for c in batch]}")
+        e.train_step = ema.step_fn
+        centers.remove()
+        spy.remove()
+        # the globals through the student once a step, masked; each local crop alone
+        check(centers.forwards == {"student": 9 * TRAIN_STEPS, "teacher": TRAIN_STEPS}
+              and len(masks) == TRAIN_STEPS,
+              f"DINOv2-ViT-S/14: forwards {centers.forwards}, {len(masks)} masked")
+        # each patch masked where its uniform is below 0.3: an image's share is a
+        # binomial mean, sd sqrt(0.3 0.7 / 256) = 0.0286, so over 512 images a band
+        # of 0.1 (3.5 sd) is left about one run in five (one image read 0.402 on
+        # an H100 80GB HBM3 at 700 W); held instead: every share within 6 sd,
+        # their mean within 0.01 of 0.3 (8 sd of a mean of 512) and their spread
+        # within a quarter of the sd (8 sd of a spread of 512)
+        share = torch.cat(masks)
+        sd = (0.3 * 0.7 / DINOV2_PATCHES) ** 0.5
+        check(share.numel() == 2 * spec.batch * TRAIN_STEPS
+              and (share - 0.3).abs().max() <= 6 * sd and abs(share.mean().item() - 0.3) <= 0.01
+              and abs(share.std().item() / sd - 1) <= 0.25,
+              f"DINOv2-ViT-S/14: masked shares {share.min().item()} .. {share.max().item()}, "
+              f"mean {share.mean().item()}, spread {share.std().item()} (binomial {sd})")
+        mt = m.teacher.backbone.mask_token
+        check(any(d is mt for d in ema.dst) and not bool(mt.grad.any()),
+              "DINOv2-ViT-S/14: the teacher's mask token takes a gradient or is not in the EMA")
+        mix = _loss_mix(spec.tag, e.train_loop.history,
+                        {"dino_loss": 1.0, "ibot_loss": 1.0, "koleo_loss": 0.1})
+        _dino_checks(spec, e, ema, centers, 0.994)
+        log(f"[train] {spec.tag}: masked shares of each image's {DINOV2_PATCHES} patches "
+            f"{share.min().item():.4f} .. {share.max().item():.4f} (mean {share.mean().item():.4f}, "
+            f"spread {share.std().item():.4f}, binomial {sd:.4f}) over {share.numel()} global crops; the teacher's mask token moved by the EMA alone "
+            f"(no gradient); loss = dino + ibot + 0.1 koleo to {mix:.3g}; layerwise_decay 0.9 "
+            "warned and decayed nothing, as in JAX")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no DINOv2-ViT-S/14 checkpoint")
+        restored = _dino_resume_check(spec, e, ("cls_center", "patch_center"))
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 40.0)),
+                   ema_max_rel_err=ema.worst, center_max_rel_err=centers.worst,
+                   mask_share_min=share.min().item(), mask_share_max=share.max().item())
+        del e, m, batch, ema, centers, mt
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt, restored)
+    return out
+
+
+@contextlib.contextmanager
+def _warnings_of(logger_module, sink: list):
+    """Collects the messages `logger_module.warning` is given (and logs them)."""
+    orig = logger_module.warning
+
+    def warning(msg):
+        sink.append(msg)
+        orig(msg)
+
+    logger_module.warning = warning
+    try:
+        yield
+    finally:
+        logger_module.warning = orig
+
+
+def phase_first_steps() -> None:
+    """Every SSL phase's first steps, card vs CPU (correctness only, their
+    time is not a measurement): run while the kernels build, whose nvcc
+    processes leave most cores idle after the first seconds."""
+    specs = (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC, SIMCLR_SPEC, MOCO_SPEC, SIMSIAM_SPEC, MOCOBYOL_SPEC,
+             SWAV_SPEC, DENSECL_SPEC, PIXPRO_SPEC, FASTMOCO_SPEC, CLIP_SPEC, CLIP_R50_SPEC,
+             DINO_SPEC, DINOV2_SPEC)
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec in specs:
+            _FIRST_STEPS[spec.tag] = _grads_card_vs_cpu(spec, tmp)
+
+
+def _in_thread(name: str, fn) -> Callable[[], None]:
+    """Starts `_timed(name, fn)` in a thread; the returned call joins it and
+    raises what it raised."""
+    error: list = []
+
+    def run():
+        try:
+            _timed(name, fn)
+        except BaseException as exc:  # noqa: BLE001  (raised again on join)
+            error.append(exc)
+
+    thread = threading.Thread(target=run, name=name)
+    thread.start()
+
+    def join() -> None:
+        thread.join()
+        if error:
+            raise error[0]
+
+    return join
 
 
 def _timed(name: str, fn, *args):
@@ -2672,7 +3151,9 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, err: float
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
-    _timed("build", phase_build)
+    join_build = _in_thread("build", phase_build)
+    _timed("first steps, card vs CPU, while the kernels build", phase_first_steps)
+    join_build()
     fwd = _timed("kernel", phase_kernel)
     bwd = _timed("kernel-bwd", phase_kernel_bwd)
     wfwd = _timed("wattn", phase_wattn)
@@ -2704,6 +3185,9 @@ def main() -> None:
     _timed("train DenseCL-R50", phase_train_densecl)
     _timed("train PixPro-R50", phase_train_pixpro)
     _timed("train FastMoCo-R18", phase_train_fastmoco)
+    _timed("train CLIP-ViT-B/32", phase_train_clip)
+    _timed("train DINO-ViT-S/16", phase_train_dino)
+    _timed("train DINOv2-ViT-S/14", phase_train_dinov2)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

@@ -7,8 +7,8 @@ Mixup/Cutmix `batch_transforms`), which give the JAX package's batches bit
 for bit from the same config and seed. This process's rank and the world
 size come from `torch.distributed` when it is initialised, else 0 and 1.
 Batches are numpy; `to_device` makes them tensors on an explicit device.
-The mask transforms (`masking`), token-label and tokenizer datasets are not
-copied yet.
+The mask transforms (`masking`) and the token-label datasets are not copied
+yet.
 """
 from __future__ import annotations
 

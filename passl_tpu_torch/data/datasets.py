@@ -1,7 +1,5 @@
 # Copied from passl_tpu/data/datasets.py; the port keeps its own copy and imports nothing of passl_tpu.
-# Left out until a slice needs them: the token-label datasets (`_register_token_label`)
-# and the captioned datasets that need the BPE tokenizer (`TextImageDataset`,
-# `StructuredTextImageDataset`).
+# Left out until a slice needs them: the token-label datasets (`_register_token_label`).
 """Datasets.
 
 Capability parity with reference `passl/data/dataset/`:
@@ -201,6 +199,45 @@ DATASETS = {
 }
 
 
+class TextImageDataset(Dataset):
+    """Image-caption pairs for CLIP (reference
+    passl_v110/datasets/textimagedataset.py): an annotation file with
+    `<image_path>\t<caption>` lines; tokenized to fixed context length."""
+
+    def __init__(
+        self,
+        data_root: str = "",
+        anno_path: Optional[str] = None,
+        transform=None,
+        context_length: int = 77,
+        bpe_path: Optional[str] = None,
+    ):
+        from .tokenizer import SimpleTokenizer
+
+        self.transform = build_transform(transform)
+        self.tokenizer = SimpleTokenizer(bpe_path=bpe_path, context_length=context_length)
+        self.samples: List[Tuple[str, str]] = []
+        if anno_path:
+            with open(anno_path) as f:
+                for line in f:
+                    parts = line.rstrip("\n").split("\t")
+                    if len(parts) >= 2:
+                        self.samples.append((os.path.join(data_root, parts[0]), parts[1]))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        path, caption = self.samples[idx]
+        with open(path, "rb") as f:
+            img = Image.open(f).convert("RGB")
+        img = self.transform(img)
+        tokens = self.tokenizer.tokenize(caption)[0]
+        return {"image": img, "text": tokens}
+
+
 class SyntheticTextImageDataset(Dataset):
     """Deterministic fake image-caption pairs (CLIP smoke/perf runs)."""
 
@@ -230,6 +267,7 @@ class SyntheticTextImageDataset(Dataset):
         return {"image": img, "text": toks}
 
 
+DATASETS["TextImageDataset"] = TextImageDataset
 DATASETS["SyntheticTextImageDataset"] = SyntheticTextImageDataset
 
 
@@ -282,6 +320,48 @@ class StructuredSyntheticDataset(Dataset):
 
 
 DATASETS["StructuredSyntheticDataset"] = StructuredSyntheticDataset
+
+
+class StructuredTextImageDataset(StructuredSyntheticDataset):
+    """Structured images paired with class-describing captions — the
+    CLIP learning check set. Captions are natural-language templates
+    over a per-class keyword, tokenized with the real (vendored) BPE
+    vocabulary, so contrastive image-text training must align the
+    visual sinusoid pattern with the caption's class word to solve
+    retrieval on held-out pairs."""
+
+    CLASS_WORDS = ["river", "mountain", "forest", "desert", "ocean",
+                   "glacier", "meadow", "canyon", "volcano", "island"]
+    TEMPLATES = ["a photo of a {}", "an image showing a {}",
+                 "this is a picture of a {}", "a {} scene"]
+
+    def __init__(self, size: int = 2048, image_size: int = 32, num_classes: int = 10,
+                 noise: float = 0.35, transform=None, index_offset: int = 0,
+                 context_length: int = 32, bpe_path=None):
+        super().__init__(size=size, image_size=image_size, num_classes=num_classes,
+                         noise=noise, transform=transform, with_label=False,
+                         index_offset=index_offset)
+        from .tokenizer import SimpleTokenizer
+
+        assert num_classes <= len(self.CLASS_WORDS)
+        self.tokenizer = SimpleTokenizer(bpe_path=bpe_path, context_length=context_length)
+
+    def caption(self, label: int, idx: int) -> str:
+        tpl = self.TEMPLATES[idx % len(self.TEMPLATES)]
+        return tpl.format(self.CLASS_WORDS[label])
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        gidx = idx + self.index_offset
+        label = gidx % self.num_classes
+        rs = np.random.RandomState(gidx)
+        img = self.transform(Image.fromarray(self._pattern(label, rs)))
+        text = self.tokenizer.tokenize(self.caption(label, gidx))[0]
+        return {"image": img, "text": text}
+
+
+DATASETS["StructuredTextImageDataset"] = StructuredTextImageDataset
 
 
 class SklearnDigits(Dataset):

@@ -81,12 +81,12 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, new_grid: int,
     """Bicubic-resize the grid part of a [1, P + prefix, C] position embedding
     to new_grid x new_grid, the prefix (class token) kept: the counterpart of
     `passl_tpu/models/vision_transformer.py:28-38`, with `jax.image.resize`'s
-    weights (summed in float64, returned at the input's type)."""
+    weights (summed in float64, returned at the input's type), differentiable,
+    on the input's device."""
     prefix, grid = pos_embed[:, :num_prefix], pos_embed[:, num_prefix:]
     old = int(round(grid.shape[1] ** 0.5))
     c = grid.shape[-1]
-    w = _resize_weights(old, new_grid)
-    w = w.double()
+    w = _resize_weights(old, new_grid).to(device=grid.device, dtype=torch.float64)
     out = torch.einsum("iy,jx,ijc->yxc", w, w, grid.reshape(old, old, c).double())
     out = out.reshape(1, new_grid * new_grid, c).to(pos_embed.dtype)
     return torch.cat([prefix, out], dim=1)

@@ -7,7 +7,10 @@ checkpoint the port's trainer wrote (`<output_dir>/<prefix>.pt`, or the
 file a `Global.checkpoint` names; a JAX `.ckpt` is refused) and writes a
 torch `state_dict` of the entries under `--prefix`, a dotted module path:
 `backbone` (SimCLR, SwAV), `online.backbone` (BYOL, MoCo-BYOL),
-`encoder_q.backbone` (MoCo), `encoder.backbone` (SimSiam).
+`encoder_q.backbone` (MoCo), `encoder.backbone` (SimSiam),
+`student.backbone` (DINO, DINOv2; `--rename encoder` for their probes, as
+`tests/e2e/run_learning_check.sh:34-42` does; DINOv2's `mask_token` is one
+entry the probe does not take).
 The BatchNorm running statistics travel with the parameters (the JAX
 tool's `batch_stats` bundling): a frozen backbone normalizing with fresh
 statistics gives useless features.

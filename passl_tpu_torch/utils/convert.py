@@ -2,7 +2,7 @@
 
 Names: a flax module path `blocks_3/attn/qkv/kernel` becomes
 `blocks.3.attn.qkv.weight` (a module name ending in `_<i>` is item i of a
-ModuleList), `kernel` and LayerNorm's `scale` become `weight`, other leaf
+ModuleList where the model holds such items; CLIP's `ln_1` stays), `kernel` and LayerNorm's `scale` become `weight`, other leaf
 names stay. Layouts: a Dense kernel `[in, out]` becomes `[out, in]`, a Conv
 kernel HWIO becomes OIHW. BatchNorm statistics come from the flax
 `batch_stats` tree: `mean` becomes `running_mean` and `var` `running_var`.
@@ -42,10 +42,27 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
+def _modules(modules: list[str], names=None) -> list[str]:
+    """Flax module names -> torch's: `blocks_3` is item 3 of `blocks`. With the
+    model's `names`, a module whose items the model does not hold keeps its
+    name (CLIP's `ln_1`, where `resblocks_3` is an item)."""
+    out: list[str] = []
+    for m in modules:
+        item = _LIST_ITEM.sub(r".\1", m)
+        if item != m and names is not None:
+            prefix = ".".join([*out, item]) + "."
+            if not any(n.startswith(prefix) for n in names):
+                item = m
+        out.append(item)
+    return out
+
+
 def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
-                verbatim: bool = False) -> tuple[str, np.ndarray]:
+                verbatim: bool = False, names=None) -> tuple[str, np.ndarray]:
+    """A flax leaf's torch name and layout (`names`: the model's, where a
+    module name ends in `_<i>` without being a list item)."""
     *modules, leaf = path.split("/")
-    modules = [_LIST_ITEM.sub(r".\1", m) for m in modules]
+    modules = _modules(modules, names)
     if verbatim:
         return ".".join([*modules, leaf]), arr
     if stats:
@@ -94,7 +111,7 @@ def flax_to_torch(params: Mapping, model: torch.nn.Module,
     for tree in (collections or {}).values():
         leaves += [(p, a, False, True) for p, a in _flatten(tree).items()]
     for path, arr, stats, verbatim in leaves:
-        key, arr = _torch_name(path, arr, stats, verbatim)
+        key, arr = _torch_name(path, arr, stats, verbatim, target)
         if key not in target:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
         if tuple(arr.shape) != tuple(target[key].shape):

@@ -8,7 +8,8 @@
 #
 #   tests/e2e/run_learning_check_torch.sh \
 #       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|mocov3|mae \
-#       |random|random_mocov3|random_mae [output dir [-o Section.key=value ...]]
+#       |clip|dino|dinov2|random|random_mocov3|random_mae|random_clip|random_dino \
+#       |random_dinov2 [output dir [-o Section.key=value ...]]
 #
 # Overrides after the output dir go to the pretrain and to the probe alike
 # (e.g. -o Global.seed=1 for another seed, -o FP16.enable=False for f32).
@@ -20,12 +21,16 @@
 # `encoder`); MAE's extract keeps the encoder's patch embedding, class
 # token and blocks under `backbone` and injects the fixed sin-cos table the
 # pretrain added as the probe ViT's `pos_embed`, as
-# tests/e2e/run_learning_check.sh:175-212 does. `random`, `random_mocov3` and
-# `random_mae` are the floors: no pretraining, the same probe over the
-# untrained ResNet-18 backbone, MoCo v3 encoder, or MAE encoder (its
-# sin-cos table injected); a method learned only by as much as its probe
-# clears its floor. They print their reading and exit 0: they pass or fail
-# no bar.
+# tests/e2e/run_learning_check.sh:175-212 does. DINO and DINOv2 probe the
+# student's backbone (`student.backbone`, re-rooted under `encoder`). CLIP is
+# held by held-out text->image retrieval, not a probe
+# (tests/e2e/clip_retrieval_check_torch.py, R@1 over the 10 class captions,
+# bar 0.5). `random`, `random_mocov3`, `random_mae`, `random_dino` and
+# `random_dinov2` are the floors: no pretraining, the same probe over the
+# untrained ResNet-18 backbone, MoCo v3, MAE (its sin-cos table injected),
+# DINO or DINOv2 encoder; `random_clip` is the retrieval of the untrained
+# CLIP. A method learned only by as much as its reading clears its floor.
+# The floors print their reading and exit 0: they pass or fail no bar.
 set -euo pipefail
 cd "$(dirname "$0")/../.."
 METHOD=${1:-simclr}
@@ -51,13 +56,23 @@ case "$METHOD" in
           PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
   mae)    CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
           PROBE_CFG=tests/e2e/probe_mae_structured.yaml ;;
+  clip)   CFG=tests/e2e/clip_structured.yaml; PREFIX=__clip__ ;;
+  dino)   CFG=tests/e2e/dino_structured.yaml; PREFIX=student.backbone; RENAME=encoder
+          PROBE_CFG=tests/e2e/probe_dino_structured.yaml
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.5 ;;
+  dinov2) CFG=tests/e2e/dinov2_structured.yaml; PREFIX=student.backbone; RENAME=encoder
+          PROBE_CFG=tests/e2e/probe_dinov2_structured.yaml
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.5 ;;
   random) CFG=; PREFIX= ;;
   random_mocov3) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml ;;
   random_mae) CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
           PROBE_CFG=tests/e2e/probe_mae_structured.yaml ;;
+  random_clip) CFG=tests/e2e/clip_structured.yaml; PREFIX=__clip__ ;;
+  random_dino) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_dino_structured.yaml ;;
+  random_dinov2) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_dinov2_structured.yaml ;;
   *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav |" \
-       "densecl | pixpro | fastmoco | mocov3 | mae | random | random_mocov3 |" \
-       "random_mae)"; exit 2 ;;
+       "densecl | pixpro | fastmoco | mocov3 | mae | clip | dino | dinov2 | random |" \
+       "random_mocov3 | random_mae | random_clip | random_dino | random_dinov2)"; exit 2 ;;
 esac
 FLOOR=$([[ "$METHOD" == random* ]] && echo 1 || echo 0)
 rm -rf "$OUT"
@@ -65,7 +80,31 @@ mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 start=$(date +%s)
 
-if [ "$FLOOR" = 1 ] && [ -z "$CFG" ]; then  # the floor: the probe over the untrained backbone
+if [ "$PREFIX" = __clip__ ]; then
+  # CLIP: held-out text->image retrieval of the trained (or, for the floor,
+  # the untrained) model, not a probe
+  CKPT=none
+  if [ "$FLOOR" = 0 ]; then
+    python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
+      -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" | tee "$OUT/pretrain.log"
+    CKPT="$OUT/pretrain/latest.pt"
+  fi
+  PYTHONPATH="$PWD${PYTHONPATH:+:$PYTHONPATH}" \
+    python tests/e2e/clip_retrieval_check_torch.py "$CFG" "$CKPT" --device cuda \
+    | tee "$OUT/retrieval.log" || true
+  end=$(date +%s)
+  r1=$(grep -oE "R@1: [0-9.]+" "$OUT/retrieval.log" | tail -1 | awk '{print $2}')
+  [ -n "$r1" ] || { echo "no R@1 reading"; exit 1; }
+  times="wall time $((end - start)) s"
+  if [ "$FLOOR" = 1 ]; then
+    echo "FINAL random-init floor ($METHOD) retrieval R@1: $r1 (chance = 0.10); $times"
+    exit 0
+  fi
+  echo "FINAL $METHOD retrieval R@1: $r1 (chance = 0.10, bar = $BAR); $times"
+  awk -v t="$r1" -v b="$BAR" 'BEGIN { exit !(t > b) }'
+  echo "LEARNING CHECK PASSED"
+  exit 0
+elif [ "$FLOOR" = 1 ] && [ -z "$CFG" ]; then  # the floor: the probe over the untrained backbone
   PRETRAINED=None
 elif [ "$PREFIX" = __mae__ ]; then
   # MAE's encoder (of the trained model, or for the floor of the untrained
@@ -104,25 +143,25 @@ else
   python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
     -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" "${PRETRAIN_EXTRA[@]}" \
     | tee "$OUT/pretrain.log"
-  if [ "$METHOD" = mocov3 ]; then
-    # the probe cannot tell MoCo v3 from no training (random_mocov3 reads
-    # 0.998): its own loss must fall, over the last epoch to at most
-    # LOSS_BAR of the first step's (with the learning rate at 0 the loss
-    # holds within 2% of its first step's)
-    python - "$OUT/pretrain.log" "$LOSS_BAR" <<'PYEOF'
+  if [ -n "${LOSS_BAR:-}" ]; then
+    # the probe cannot tell the method from no training (random_mocov3 reads
+    # 0.998, random_dino 0.996, random_dinov2 1.000): its own loss must fall,
+    # over the last epoch to at most LOSS_BAR of the first step's (with the
+    # learning rate at 0 MoCo v3's holds near its first step's, DINO's and
+    # DINOv2's rise as the centers move)
+    python - "$OUT/pretrain.log" "$LOSS_BAR" "$METHOD" <<'PYEOF'
 import re
 import sys
 
-log, bar = open(sys.argv[1]).read(), float(sys.argv[2])
-rows = [(int(e), float(loss), float(acc1)) for e, loss, acc1 in re.findall(
-    r"\[Train\]\[Epoch (\d+)/\d+\]\[Iter: *\d+/\d+\] .*?loss: ([0-9.]+) acc1: ([0-9.]+)", log)]
+log, bar, method = open(sys.argv[1]).read(), float(sys.argv[2]), sys.argv[3]
+rows = [(int(e), float(loss)) for e, loss in re.findall(
+    r"\[Train\]\[Epoch (\d+)/\d+\]\[Iter: *\d+/\d+\] .*? loss: ([0-9.]+)", log)]
 last = [r for r in rows if r[0] == rows[-1][0]]
-loss, acc1 = (sum(r[i] for r in last) / len(last) for i in (1, 2))
-print(f"MoCo v3 pretrain loss: {rows[0][1]:.5f} at the first step (acc1 {rows[0][2]:.5f}), "
-      f"{loss:.5f} over epoch {rows[-1][0]} (acc1 {acc1:.5f}); bar {bar} x the first: "
-      f"{bar * rows[0][1]:.5f}")
+loss = sum(r[1] for r in last) / len(last)
+print(f"{method} pretrain loss: {rows[0][1]:.5f} at the first step, {loss:.5f} over epoch "
+      f"{rows[-1][0]}; bar {bar} x the first: {bar * rows[0][1]:.5f}")
 if not loss <= bar * rows[0][1]:
-    raise SystemExit("MoCo v3's pretrain loss did not fall to the bar")
+    raise SystemExit(f"{method}'s pretrain loss did not fall to the bar")
 PYEOF
   fi
   python -m passl_tpu_torch.tools.extract_weights \

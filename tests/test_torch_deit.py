@@ -260,13 +260,15 @@ def _config(tmp_path, *overrides):
     return cfg_util.get_config(TINY_CFG, overrides=[f"Global.output_dir={tmp_path}", *overrides])
 
 
-def _adamw_moments(opt_state) -> dict:
-    """The JAX AdamW state {path: {m, v}} as the port's (exp_avg, exp_avg_sq)."""
+def _adamw_moments(opt_state, names=None) -> dict:
+    """The JAX AdamW state {path: {m, v}} as the port's (exp_avg, exp_avg_sq)
+    (`names`: the model's, where a module name ends in `_<i>` without being
+    a list item, as CLIP's `ln_1`)."""
     out = {}
     for path, leaf in _flatten(opt_state).items():
         head, kind = path.rsplit("/", 1)
         if kind in ("m", "v"):
-            name, arr = _torch_name(head, leaf)
+            name, arr = _torch_name(head, leaf, names=names)
             out.setdefault(name, {})[kind] = torch.from_numpy(np.array(arr, np.float32))
     return out
 
@@ -320,7 +322,8 @@ def assert_step_tracks(engine: Engine, batch, want: dict, before: tuple, after: 
         # the key bias adds one constant to every score of a row, which the
         # softmax cancels: its gradient is rounding noise on both sides, which
         # AdamW scales up to the lr, so only the query and value thirds are held
-        if name.endswith("attn.qkv.bias"):
+        # (the ViT's `attn.qkv`, CLIP's `attn_qkv`)
+        if name.endswith(("attn.qkv.bias", "attn_qkv.bias")):
             third = x.shape[0] // 3
             return torch.cat([x[:third], x[2 * third:]])
         return x

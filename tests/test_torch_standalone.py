@@ -4,9 +4,11 @@ An AST walk over every module of `passl_tpu_torch/` and `chip_smoke.py`
 refuses any import of `passl_tpu`, `passl_tpu.*` or `jax`; a fresh
 interpreter that imports the port's entry points finds neither in
 `sys.modules`; the port's own copies of the data pipeline give the JAX
-package's batches bit for bit from the same config and seed; and its copy of
-`models/utils/pos_embed.py` is the JAX file under its header, its tables bit
-for bit.
+package's batches bit for bit from the same config and seed, the captioned
+datasets' included; its copy of `models/utils/pos_embed.py` is the JAX file
+under its header, its tables bit for bit; and its copy of
+`data/tokenizer.py` is the JAX file under its header, reading its own copy
+of the BPE vocabulary (the JAX asset's sha256), its tokens bit for bit.
 """
 import ast
 import copy
@@ -155,3 +157,93 @@ def test_pos_embed_copy_is_the_jax_file_under_its_header():
              jax_pos.mocov3_2d_sincos_pos_embed(768, 14, 14))):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------------------- the tokenizer copy
+
+CAPTIONS = ["a photo of a cat", "hello world", "a diagram", "A photo of a DOG.",
+            "a cat sat on the mat", " ".join(["word"] * 200), "café naïve 日本",
+            "&amp;quot;it's&quot; 12 o'clock -- don't", ""]
+
+
+def test_tokenizer_copy_is_the_jax_file_under_its_header_with_its_vocabulary():
+    """`passl_tpu_torch/data/tokenizer.py` is the JAX package's file under two
+    header lines, and reads its own copy of the BPE vocabulary, byte for byte
+    the JAX package's asset."""
+    import hashlib
+
+    from passl_tpu_torch.data import tokenizer as port_tok
+
+    with open(os.path.join(REPO, "passl_tpu", "data", "tokenizer.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "passl_tpu_torch", "data", "tokenizer.py")) as f:
+        lines = f.read().split("\n")
+    assert lines[0].startswith("# Copied from passl_tpu/data/tokenizer.py")
+    assert "\n".join(lines[2:]) == jax_src
+    assert port_tok.DEFAULT_BPE_PATH == os.path.join(REPO, "passl_tpu_torch", "data", "assets",
+                                                     "bpe_simple_vocab_16e6.txt.gz")
+    digests = []
+    for pkg in ("passl_tpu", "passl_tpu_torch"):
+        with open(os.path.join(REPO, pkg, "data", "assets", "bpe_simple_vocab_16e6.txt.gz"),
+                  "rb") as f:
+            digests.append(hashlib.sha256(f.read()).hexdigest())
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.parametrize("bpe", ["vendored", "byte-level"])
+def test_tokens_are_the_jax_tokenizers_bitwise(bpe):
+    """tests/test_clip.py's strings, the ten StructuredTextImageDataset class
+    captions of every template and a few edge cases, with the vendored
+    vocabulary and with the byte-level fallback (`bpe_path=""`)."""
+    from passl_tpu.data.datasets import StructuredTextImageDataset
+    from passl_tpu.data.tokenizer import SimpleTokenizer as JaxTok
+    from passl_tpu_torch.data.tokenizer import SimpleTokenizer as PortTok
+
+    path = None if bpe == "vendored" else ""
+    texts = CAPTIONS + [t.format(w) for t in StructuredTextImageDataset.TEMPLATES
+                        for w in StructuredTextImageDataset.CLASS_WORDS]
+    jt, pt = JaxTok(bpe_path=path), PortTok(bpe_path=path)
+    assert pt.vocab_size == jt.vocab_size == (49408 if bpe == "vendored" else 514)
+    for ctx in (77, 32):
+        got, want = pt.tokenize(texts, ctx), jt.tokenize(texts, ctx)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    assert [pt.decode(pt.encode(t)) for t in texts] == [jt.decode(jt.encode(t)) for t in texts]
+
+
+@pytest.mark.parametrize("name", ["StructuredTextImageDataset", "SyntheticTextImageDataset",
+                                  "TextImageDataset"])
+def test_port_loader_gives_the_captioned_batches_bitwise(name, tmp_path):
+    """The captioned datasets through both loaders: the {"image", "text"}
+    batches equal, the tokens int32."""
+    from PIL import Image
+
+    transform = [{"RandomResizedCrop": {"size": 24, "scale": [0.6, 1.0]}},
+                 {"RandFlipImage": {"prob": 0.5}},
+                 {"NormalizeImage": {"scale": 1 / 255.0, "mean": [0.5] * 3, "std": [0.25] * 3}}]
+    if name == "TextImageDataset":
+        rs = np.random.RandomState(0)
+        with open(tmp_path / "pairs.tsv", "w") as f:
+            for i in range(8):
+                Image.fromarray(rs.randint(0, 256, (28, 30, 3), np.uint8)).save(
+                    tmp_path / f"{i}.png")
+                f.write(f"{i}.png\ta photo of a {CAPTIONS[i % 5]} #{i}\n")
+        dataset = {"data_root": str(tmp_path), "anno_path": str(tmp_path / "pairs.tsv"),
+                   "context_length": 16}
+    elif name == "StructuredTextImageDataset":
+        dataset = {"size": 8, "image_size": 32, "num_classes": 10, "noise": 0.2,
+                   "context_length": 32}
+    else:
+        dataset = {"size": 8, "image_size": 32, "context_length": 16, "vocab_size": 256}
+    dl = {"dataset": {"name": name, "transform": transform, **dataset},
+          "sampler": {"batch_size": 4, "shuffle": True, "drop_last": True},
+          "loader": {"num_workers": 0}}
+    want = _first_batches(jax_build_dataloader, dl, 42)
+    got = _first_batches(build_dataloader, dl, 42)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == {"image", "text"}
+        for k in g:
+            assert g[k].dtype == w[k].dtype and g[k].shape == w[k].shape
+            np.testing.assert_array_equal(g[k], w[k])
+        assert g["text"].dtype == np.int32 and g["image"].shape == (4, 24, 24, 3)
