@@ -6,7 +6,7 @@ Run from the repo root:  python3 chip_smoke.py
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
    one nvcc per source, side by side, in a thread; meanwhile it takes every
    SSL phase's first step on the card and on the CPU in f32 and f64 (phases
-   14-29 below hold them; no kernel runs there, and the nvcc processes leave
+   14-32 below hold them; no kernel runs there, and the nvcc processes leave
    most cores idle after their first seconds).
 3. Holds the talking-heads forward against its plain PyTorch version on the
    card at the shapes CaiT uses, through whichever of its two kernels the C
@@ -207,13 +207,14 @@ Run from the repo root:  python3 chip_smoke.py
    (cosine >= 0.999), at softmax_dtype=float32 (>= 0.9999) and in f32.
 24. Trains ViT-L/16 at 384 (577 tokens) from
    configs/classification/vit_large_patch16_384_ft_in1k.yaml with
-   Model.attn_impl=flash, bf16, 32 images: the first step's gradients under
+   Model.attn_impl=flash, bf16, 32 images, 12 of its 24 blocks (a cut for
+   the script's time): the first step's gradients under
    remat_policy nothing, dots_no_batch and dots against no remat from one
    init, batch and generator state (drop path 0.1), cosine >= 0.99999 and
    whether they are bitwise, each run's peak memory (nothing and
    dots_no_batch below no remat) and flash launches (the forward's doubled
-   under remat); then 4 steps of the config (dots_no_batch): 48 forward, 24
-   dK/dV and 24 dQ launches a step, step time, images/s, a profiled step.
+   under remat); then 4 steps of the config (dots_no_batch): 24 forward, 12
+   dK/dV and 12 dQ launches a step, step time, images/s, a profiled step.
 25. Trains MoCo v3 ViT-B/16 the same way as the SSL phases on
    configs/mocov3/mocov3_vit_base_in1k.yaml with Model.encoder.attn_impl=flash:
    128 pairs, AdamW, bf16, 8 steps. Checks: the EMA rule after every step on
@@ -264,9 +265,37 @@ Run from the repo root:  python3 chip_smoke.py
    step card vs CPU at 4 images with one mask noise handed to both devices
    (at LayerScale 1.0: at 1e-5 KoLeo's f32 distance goes negative at init in
    both packages' formula).
+30. Trains BEiT-B/16 on configs/beit/beit_base_patch16_224_in1k.yaml with a
+   random tokenizer (Global.pretrained_model empty: the config's dVAE weights
+   are a JAX file the port does not read): 64 images of two views and a
+   block mask of up to 75 of 196 patches, the frozen dVAE tokenizer's 8,192
+   tokens on its 28 x 28 grid, AdamW with clip 3, bf16, 8 steps, no kernel
+   (the JAX model attends with its own einsums). Checks: the recipe's model
+   (12 blocks of 768 with LayerScale 0.1 and drop path 0.1, the relative
+   position bias, a tokenizer without decoder); every mask holds 1 to 75
+   patches; the loss is the cross-entropy of the masked patches alone; the
+   tokenizer bitwise unchanged after 8 steps and without optimizer state;
+   resume; the first step card vs CPU at 4 images in f32 and f64 (no drop
+   path: the two devices' generators draw other masks), the target ids of
+   the f32 runs compared position by position with their top-2 margins.
+   Before it, the standalone dVAE's first step (configs/beit/
+   dvae_tokenizer_in1k.yaml: 4 images, one gumbel draw handed to both
+   devices) card vs CPU in f32 and f64.
+31. Trains CAE-B/16 the same way on configs/cae/cae_base_patch16_224_in1k.yaml:
+   64 images, 98 of 196 patches masked, 4 regressor blocks, bf16, 8 steps.
+   Checks: ids_vis and ids_mask a permutation in every image; the encoder's
+   blocks over 98 tokens, then the teacher's over 196, each step; the share
+   of masks short of 98 (their last visible patches fill ids_mask, as in
+   JAX); loss = token + 2 align; the tokenizer frozen; resume; the first step
+   card vs CPU with the target ids compared.
+32. Trains ConvMAE-B on configs/convmae/convmae_base_in1k.yaml: 128 images,
+   147 of 196 masked, bf16, 8 steps. Checks: every mask keeps 49 patches and
+   at each of the 4 CBlocks' depthwise inputs the masked positions of its
+   56 x 56 or 28 x 28 grid are zero; resume; the first step card vs CPU with
+   one noise handed to both devices.
    Every SSL phase logs `[time]` lines: where its time goes (the first
    steps, the main path, the profiled step, the resume).
-30. Prints the card line, a JSON line of the eight kernels' results, and
+33. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -276,6 +305,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -297,7 +327,7 @@ from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
 from passl_tpu_torch.engine import engine as engine_mod
-from passl_tpu_torch.models import dino, mae, moco
+from passl_tpu_torch.models import beit, dino, discrete_vae, mae, moco
 from passl_tpu_torch.nn.layers import Attention
 from passl_tpu_torch.nn.norm import SplitBatchNorm
 from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
@@ -1607,10 +1637,12 @@ def _to_f64(model: torch.nn.Module) -> None:
 
 
 def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
-    """{(device, f64): (loss, grads)} of the first step on the card and on the
-    CPU, in f32 and in f64, from one engine: each run starts from the engine's
-    init (parameters and buffers: a step moves BatchNorm statistics, queues,
-    centers) and a fresh generator seeded as the engine seeds it, on its device."""
+    """{(device, f64): (loss, grads, shapes)} of the first step on the card and
+    on the CPU, in f32 and in f64, from one engine: each run starts from the
+    engine's init (parameters and buffers: a step moves BatchNorm statistics,
+    queues, centers) and a fresh generator seeded as the engine seeds it, on its
+    device. `grads` is every gradient in f64 on the CPU, flattened into one
+    vector in the order of `shapes`, [(name, shape)]."""
     e = Engine(_ssl_config(spec, os.path.join(tmp, "grads"), spec.grad_batch,
                            "FP16.enable=False", *spec.grad_overrides, workers=0),
                mode="train", device="cpu")
@@ -1624,9 +1656,10 @@ def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
             e.model.to(device).load_state_dict(init)  # f64 parameters take the f32 init exactly
             e.state.generator = torch.Generator(device=device).manual_seed(e.seed + 1)
             loss = float(e.train_step.forward_backward(e.state, batches[device])["loss"])
-            runs[device, f64] = loss, {  # the EMA tower takes no gradient
-                n: p.grad.detach().double().cpu().clone() for n, p in e.model.named_parameters()
-                if not (spec.no_grad and n.startswith(spec.no_grad))}
+            named = [(n, p) for n, p in e.model.named_parameters()  # the EMA tower takes none
+                     if not (spec.no_grad and n.startswith(spec.no_grad))]
+            grads = torch.cat([p.grad.detach().flatten().double() for _, p in named]).cpu()
+            runs[device, f64] = loss, grads, [(n, p.shape) for n, p in named]
     e.close()
     del e, batches
     torch.cuda.empty_cache()
@@ -1634,22 +1667,22 @@ def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
 
 
 def _grad_agreement(spec: SSLSpec, tag: str, a: tuple, b: tuple) -> dict:
-    """Loss and gradient cosines of two first steps (loss, grads): overall and
-    the lowest of the stem's and layer4's conv weights."""
-    (l_a, g_a), (l_b, g_b) = a, b
-    names = list(g_a)
-    cos_all = _cos(torch.cat([g_a[n].flatten() for n in names]),
-                   torch.cat([g_b[n].flatten() for n in names]))
-    watched = [n for n in names if spec.watch(n)] if spec.watch else [
-        n for n in names if g_a[n].dim() == 4 and (
+    """Loss and gradient cosines of two first steps (loss, grads, shapes):
+    overall and the lowest of the stem's and layer4's conv weights."""
+    (l_a, flat_a, shapes), (l_b, flat_b, _) = a, b
+    sizes = [s.numel() for _, s in shapes]
+    g_a = {n: v for (n, _), v in zip(shapes, torch.split(flat_a, sizes))}  # views
+    g_b = {n: v for (n, _), v in zip(shapes, torch.split(flat_b, sizes))}
+    cos_all = _cos(flat_a, flat_b)
+    watched = [n for n, _ in shapes if spec.watch(n)] if spec.watch else [
+        n for n, shape in shapes if len(shape) == 4 and (
             n == f"{spec.backbone}conv1.weight" or n.startswith(f"{spec.backbone}layer4."))]
     what = "watched weights" if spec.watch else "stem/layer4 convs"
     check(len(watched) == spec.watched, f"{spec.tag}: {len(watched)} {what}, want {spec.watched}")
-    cos_conv = {n: _cos(g_a[n].flatten(), g_b[n].flatten()) for n in watched}
+    cos_conv = {n: _cos(g_a[n], g_b[n]) for n in watched}
     worst = min(cos_conv, key=cos_conv.get)
     rel = abs(l_a - l_b) / max(abs(l_b), spec.loss_scale)
-    flat_b = torch.cat([g_b[n].flatten() for n in names])
-    dist = ((torch.cat([g_a[n].flatten() for n in names]) - flat_b).norm() / flat_b.norm()).item()
+    dist = (torch.dist(flat_a, flat_b) / flat_b.norm()).item()
     unit = "pairs" if spec.views == 2 else "images"
     log(f"[train] {spec.tag} first step, {tag} ({spec.grad_batch} {unit}): loss {l_a:.9f} vs "
         f"{l_b:.9f} (rel {rel:.3g}), gradient cosine overall {cos_all:.9f}, lowest of "
@@ -2405,14 +2438,17 @@ def _flash_launches() -> tuple:
 
 
 VITL_CONFIG = os.path.join(REPO, "configs", "classification", "vit_large_patch16_384_ft_in1k.yaml")
-VITL_BLOCKS = 24
+# 12 of the config's 24 blocks at full width (1024, 16 heads, 577 tokens): a cut
+# that keeps chip_smoke.py inside its time; the policies' gradients, peaks and
+# launches are held the same way at any depth
+VITL_BLOCKS = 12
 VITL_BATCH = 32  # the JAX package's bench row (bench.py:819)
 VITL_STEPS = 4
 VITL_TRAIN = TrainSpec("ViT-L/16-384", VITL_CONFIG, VITL_BATCH, VITL_BLOCKS, VITL_BLOCKS,
                        flash_attention, (flash_attention_dkv, flash_attention_dq),
                        # random weights: the finetune config's pretrained file is not here
                        ("Model.attn_impl=flash", f"Global.max_train_step={VITL_STEPS}",
-                        "Global.pretrained_model=None"), (), (),
+                        "Global.pretrained_model=None", f"Model.depth={VITL_BLOCKS}"), (), (),
                        lambda n: n.endswith("attn.qkv.weight"))
 REMAT_POLICIES = ("nothing", "dots_no_batch", "dots")
 
@@ -3081,6 +3117,334 @@ def phase_train_dinov2() -> dict:
     return out
 
 
+# ------------------------------------------------------ masked image modeling
+
+MIM_BLOCKS, MIM_PATCHES = 12, 196  # ViT-B/16 at 224: 14 x 14 patches
+VOCAB, TOKEN_GRID = 8192, 28  # the dVAE's vocabulary and its /8 grid at 224
+_TARGETS: dict = {}  # spec tag -> the first steps' target-id agreement
+
+
+class _TargetIds:
+    """Records the frozen tokenizer's target ids in each first step (in order:
+    the card's f32, the CPU's f32, the card's f64, the CPU's f64), with each
+    position's margin between its two largest logits; on exit it counts the
+    f32 runs' disagreements, card against CPU, and their margins (a flip at a
+    near tie is reported, not hidden)."""
+
+    def __init__(self, tag: str):
+        self.tag, self.runs, self.orig = tag, [], discrete_vae.DiscreteVAE.tokenize
+
+    def __enter__(self):
+        def tokenize(mod, imgs):
+            logits = mod.encode_logits(imgs)
+            top = logits.topk(2, dim=-1).values
+            ids = logits.argmax(dim=-1).reshape(imgs.shape[0], -1)
+            self.runs.append((ids.cpu(), (top[..., 0] - top[..., 1]).reshape(ids.shape).cpu()))
+            return ids
+
+        discrete_vae.DiscreteVAE.tokenize = tokenize
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        discrete_vae.DiscreteVAE.tokenize = self.orig
+        if exc_type is not None:
+            return
+        check(len(self.runs) == 4, f"{self.tag}: {len(self.runs)} tokenizer calls in 4 first steps")
+        (ids_card, gap_card), (ids_cpu, gap_cpu) = self.runs[0], self.runs[1]
+        flips = ids_card != ids_cpu
+        f64_flips = int((self.runs[2][0] != self.runs[3][0]).sum())
+        rec = {"target_ids": ids_card.numel(), "target_flips_f32": int(flips.sum()),
+               "target_flips_f64": f64_flips,
+               "target_min_margin": float(gap_cpu.double().min()),
+               "target_flip_max_margin": float(gap_cpu[flips].max()) if flips.any() else 0.0,
+               "target_ids_used": int(ids_cpu.unique().numel())}
+        _TARGETS[self.tag] = rec
+        log(f"[train] {self.tag} first step's target ids, f32 card vs CPU: "
+            f"{rec['target_flips_f32']} of {rec['target_ids']} differ (largest top-2 logit margin among them "
+            f"{rec['target_flip_max_margin']:.3g}; the smallest margin of all "
+            f"{rec['target_min_margin']:.3g}); f64: {f64_flips} differ; "
+            f"{rec['target_ids_used']} distinct ids")
+
+
+@contextlib.contextmanager
+def _one_gumbel(shape):
+    """The dVAE's gumbel noise takes one fixed draw of `shape` on every device."""
+    u = torch.from_numpy(np.random.RandomState(18).rand(*shape).astype(np.float32))
+    orig = discrete_vae.gumbel_uniforms
+    discrete_vae.gumbel_uniforms = lambda shape_, generator, device: u.to(device)
+    try:
+        yield
+    finally:
+        discrete_vae.gumbel_uniforms = orig
+
+
+DVAE_SPEC = SSLSpec(
+    "dVAE-8192", os.path.join(REPO, "configs", "beit", "dvae_tokenizer_in1k.yaml"),
+    4, 4, (), "", views=1, f32_error_ratio=2.0, error_by_distance=True, watched=6,
+    watch=lambda n: n.startswith(("enc_down", "dec_up")) and n.endswith(".weight"),
+    draws=lambda: _one_gumbel((4, TOKEN_GRID, TOKEN_GRID, VOCAB)))
+_QKV = "attn.qkv.weight"
+BEIT_MASKED = 75  # the config's num_masking_patches
+BEIT_SPEC = SSLSpec(
+    "BEiT-B/16", os.path.join(REPO, "configs", "beit", "beit_base_patch16_224_in1k.yaml"),
+    64,  # images: the recipe's 2,048 over 32 cards
+    # no stochastic depth in the first step: the card's and the CPU's generators
+    # draw other masks
+    4, ("Model.encoder.drop_path_rate=0.0",), "", "tokenizer.",
+    overrides=("Global.pretrained_model=",), views=1, f32_error_ratio=2.0,
+    error_by_distance=True, watched=MIM_BLOCKS,
+    watch=lambda n: n.startswith("encoder.blocks.") and n.endswith(_QKV),
+    draws=lambda: _TargetIds("BEiT-B/16"))
+CAE_MASKED = 98  # the config's num_masked and num_masking_patches
+CAE_SPEC = SSLSpec(
+    "CAE-B/16", os.path.join(REPO, "configs", "cae", "cae_base_patch16_224_in1k.yaml"),
+    64,  # images: the JAX package's bench row (bench.py:389-410)
+    # the card's f32 distance from f64 read 1.943 times the CPU's, both under
+    # 3.4e-7 of the gradient's norm (H100 80GB HBM3 at 700 W): 3 leaves room for
+    # two such roundings and still tells f32 from TF32 (thousands of times)
+    4, (), "", "tokenizer.", overrides=("Global.pretrained_model=",), views=1,
+    f32_error_ratio=3.0, error_by_distance=True, watched=MIM_BLOCKS,
+    watch=lambda n: n.startswith("blocks.") and n.endswith(_QKV),
+    draws=lambda: _TargetIds("CAE-B/16"))
+CONVMAE_KEPT = 49  # of 196: 147 masked at the config's ratio 0.75
+CONVMAE_SPEC = SSLSpec(
+    "ConvMAE-B", os.path.join(REPO, "configs", "convmae", "convmae_base_in1k.yaml"),
+    128,  # images: the recipe's 4,096 over 32 cards
+    4, (), "", views=1, f32_error_ratio=2.0, error_by_distance=True, watched=11 + 8,
+    watch=lambda n: n.endswith(_QKV), draws=lambda: _one_noise(4, MIM_PATCHES))
+
+
+def _tokenizer_frozen(spec: SSLSpec, e: Engine, before: dict) -> None:
+    """The tokenizer bitwise as it started and without optimizer state."""
+    after = {k: v for k, v in e.model.state_dict().items() if k.startswith(spec.no_grad)}
+    check(set(after) == set(before) and all(torch.equal(after[k], v) for k, v in before.items()),
+          f"{spec.tag}: the frozen tokenizer moved")
+    _no_optimizer_state_on(spec, e)
+    log(f"[train] {spec.tag}: the tokenizer's {len(before)} tensors bitwise unchanged after "
+        f"{TRAIN_STEPS} steps, no optimizer state on them")
+
+
+def _tokenizer_of_the_recipe(spec: SSLSpec, tok) -> None:
+    check(tok.to_logits.weight.shape[:2] == (VOCAB, 256) and not hasattr(tok, "codebook"),
+          f"{spec.tag}: the tokenizer is not the recipe's dVAE encoder (vocabulary 8,192 over "
+          "256 features, no decoder)")
+
+
+class _MaskSpy:
+    """Counts each image's masked patches at the model's entry on the main path."""
+
+    def __init__(self, model: torch.nn.Module):
+        self.counts = []
+        self.hook = model.register_forward_pre_hook(
+            lambda mod, args: self.counts.append(args[0][2].sum(1).cpu()))
+
+    def remove(self) -> torch.Tensor:
+        self.hook.remove()
+        return torch.cat(self.counts)
+
+
+def _masked_loss_only(spec: SSLSpec, e: Engine, batch) -> float:
+    """BEiT's loss on `batch` (eval: no stochastic depth) against the
+    cross-entropy over its masked patches alone, recomputed from the parts."""
+    m = e.model.eval()
+    view, tok_view, mask = batch
+    with torch.no_grad():
+        out = m(batch)
+        logits = m.head(m.encoder(view, bool_mask=mask)[:, 1:]).float()
+        target = beit._pool_targets(m.tokenizer.tokenize(tok_view), logits.shape[1])
+    m.train()
+    nll = -torch.log_softmax(logits, -1).gather(-1, target[:, :, None])[:, :, 0]
+    want = nll[mask.bool()].mean()
+    rel = abs(out["loss"].item() - want.item()) / want.item()
+    check(rel <= 1e-5, f"{spec.tag}: the loss {out['loss'].item()} is not the masked patches' "
+          f"cross-entropy {want.item()}")
+    return rel
+
+
+def phase_train_beit() -> dict:
+    spec = BEIT_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp), **_TARGETS.get(spec.tag, {}))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        blocks = m.encoder.blocks
+        check(e.policy.compute_dtype == torch.bfloat16 and len(blocks) == MIM_BLOCKS
+              and m.encoder.embed_dim == 768 and blocks[0].attn.num_heads == 12
+              and blocks[0].init_values == 0.1 and blocks[-1].drop_path1.rate == 0.1
+              and m.head.out_features == VOCAB and m.encoder.mask_token is not None
+              and tuple(blocks[0].attn.relative_position_bias_table.shape) == (27 * 27 + 3, 12)
+              and e.grad_clip is not None and e.grad_clip.clip_norm == 3.0,
+              "BEiT-B/16: not the recipe's bf16 / 12 blocks of 768, 12 heads, LayerScale 0.1, "
+              "drop path 0.1, relative position bias / 8,192 tokens / clip 3")
+        _tokenizer_of_the_recipe(spec, m.tokenizer)
+        tok0 = {k: v.clone() for k, v in m.state_dict().items() if k.startswith(spec.no_grad)}
+        spy = _MaskSpy(m)
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        counts = spy.remove()
+        check(counts.numel() == spec.batch * TRAIN_STEPS and 1 <= counts.min()
+              and counts.max() <= BEIT_MASKED,
+              f"BEiT-B/16: masked patches {counts.min()} .. {counts.max()}, want 1 .. 75")
+        _tokenizer_frozen(spec, e, tok0)
+        rel = _masked_loss_only(spec, e, batch)
+        log(f"[train] {spec.tag}: masked patches an image {int(counts.min())} .. "
+            f"{int(counts.max())} of {MIM_PATCHES} (mean {counts.float().mean():.2f}) over "
+            f"{counts.numel()} images; the loss is the masked patches' cross-entropy "
+            f"(rel {rel:.3g})")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no BEiT-B/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)),
+                   masked_min=int(counts.min()), masked_max=int(counts.max()))
+        del e, m, batch, blocks
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _SplitSpy:
+    """Holds CAE's split on the main path: ids_vis and ids_mask a permutation
+    of the patches, the encoder's blocks over exactly `visible` tokens (and the
+    teacher's over all); counts the masks short of `masked`."""
+
+    def __init__(self, model: torch.nn.Module, masked: int):
+        self.model, self.masked, self.short, self.images = model, masked, 0, 0
+        self.widths: list = []
+        orig = self.orig = model.split
+
+        def split(bool_mask):
+            ids_vis, ids_mask = orig(bool_mask)
+            n, l = bool_mask.shape
+            perm = torch.equal(torch.sort(torch.cat([ids_vis, ids_mask], 1), 1).values,
+                               torch.arange(l, device=bool_mask.device).expand(n, -1))
+            check(perm and ids_mask.shape[1] == masked,
+                  "CAE-B/16: ids_vis and ids_mask are no permutation of the patches")
+            self.short += int((bool_mask.sum(1) < masked).sum())
+            self.images += n
+            return ids_vis, ids_mask
+
+        model.split = split
+        self.hook = model.blocks[0].register_forward_pre_hook(
+            lambda mod, args: self.widths.append(args[0].shape[1]))
+
+    def remove(self) -> None:
+        del self.model.split
+        self.hook.remove()
+
+
+def phase_train_cae() -> dict:
+    spec = CAE_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp), **_TARGETS.get(spec.tag, {}))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and len(m.blocks) == MIM_BLOCKS
+              and m.embed_dim == 768 and m.blocks[0].attn.num_heads == 12
+              and len(m.regressor) == 4 and m.num_masked == CAE_MASKED
+              and m.head.out_features == VOCAB and (m.align_weight, m.token_weight) == (2.0, 1.0),
+              "CAE-B/16: not the recipe's bf16 / 12 blocks of 768, 12 heads / 4 regressor "
+              "blocks / 98 masked / 8,192 tokens / weights 2 and 1")
+        _tokenizer_of_the_recipe(spec, m.tokenizer)
+        tok0 = {k: v.clone() for k, v in m.state_dict().items() if k.startswith(spec.no_grad)}
+        spy = _SplitSpy(m, CAE_MASKED)
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        spy.remove()
+        visible = MIM_PATCHES - CAE_MASKED
+        check(spy.images == spec.batch * TRAIN_STEPS
+              and spy.widths == [visible, MIM_PATCHES] * TRAIN_STEPS,
+              f"CAE-B/16: the encoder's widths {spy.widths}, want {visible} then the teacher's "
+              f"{MIM_PATCHES} each step")
+        _tokenizer_frozen(spec, e, tok0)
+        mix = _loss_mix(spec.tag, e.train_loop.history, {"token_loss": 1.0, "align_loss": 2.0})
+        log(f"[train] {spec.tag}: ids_vis and ids_mask a permutation of the {MIM_PATCHES} "
+            f"patches in every image; the encoder saw {visible} tokens, the teacher "
+            f"{MIM_PATCHES}, each step; {spy.short} of {spy.images} masks short of "
+            f"{CAE_MASKED} ({spy.short / spy.images:.1%}: the last visible patches fill "
+            f"ids_mask, as in JAX); loss = token + 2 align to {mix:.3g}")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no CAE-B/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 40.0)),
+                   short_mask_share=spy.short / spy.images)
+        del e, m, batch, spy
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _VisibilityCheck:
+    """On ConvMAE's main path: each step's mask keeps `kept` of the stage-3
+    patches (from the noise it drew), and at every CBlock's depthwise input the
+    masked positions of that stage's grid are zero."""
+
+    def __init__(self, model: torch.nn.Module, kept: int):
+        self.kept, self.noise, self.calls, self.orig = kept, [], 0, mae.masking_noise
+        p1, p2, p3 = model.patch_sizes
+        reps = [p2 * p3] * len(model.blocks1) + [p3] * len(model.blocks2)
+        self.hooks = [blk.attn.register_forward_pre_hook(functools.partial(self._hook, rep))
+                      for blk, rep in zip([*model.blocks1, *model.blocks2], reps)]
+
+    def _hook(self, rep: int, mod, args) -> None:
+        y = args[0]  # NCHW
+        n, g = y.shape[0], y.shape[2] // rep
+        masked = torch.ones(n, g * g, dtype=torch.bool, device=y.device)
+        masked.scatter_(1, torch.argsort(self.noise[-1], dim=1, stable=True)[:, :self.kept],
+                        False)
+        grid = masked.reshape(n, 1, g, g).repeat_interleave(rep, 2).repeat_interleave(rep, 3)
+        check(not bool((y * grid).any()) and bool(y[:, :, ~grid[0, 0]].any()),
+              "ConvMAE-B: a masked position is not zero at a CBlock's depthwise input")
+        self.calls += 1
+
+    def __enter__(self):
+        def noise(n, length, generator, device):
+            self.noise.append(self.orig(n, length, generator, device))
+            return self.noise[-1]
+
+        mae.masking_noise = noise
+        return self
+
+    def __exit__(self, *exc):
+        mae.masking_noise = self.orig
+        for h in self.hooks:
+            h.remove()
+
+
+def phase_train_convmae() -> dict:
+    spec = CONVMAE_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and m.embed_dims == (256, 384, 768)
+              and (len(m.blocks1), len(m.blocks2), len(m.blocks3)) == (2, 2, 11)
+              and m.patch_sizes == (4, 2, 2) and len(m.decoder_blocks) == 8
+              and m.decoder_blocks[0].attn.num_heads == 16 and m.norm_pix_loss
+              and int(MIM_PATCHES * (1 - m.mask_ratio)) == CONVMAE_KEPT,
+              "ConvMAE-B: not the recipe's bf16 / stages 256, 384, 768 of 2, 2, 11 blocks in "
+              "4, 2, 2 px / decoder 8 blocks of 16 heads / 147 of 196 masked / norm-pix loss")
+        torch.cuda.reset_peak_memory_stats()
+        with _VisibilityCheck(m, CONVMAE_KEPT) as vis:
+            batch = _main_path(spec.tag, e)
+        check(len(vis.noise) == TRAIN_STEPS and vis.calls == 4 * TRAIN_STEPS,
+              f"ConvMAE-B: {len(vis.noise)} masks and {vis.calls} CBlock checks")
+        log(f"[train] {spec.tag}: every mask kept {CONVMAE_KEPT} of {MIM_PATCHES} patches "
+            f"({MIM_PATCHES - CONVMAE_KEPT} masked); at each of the 4 CBlocks' depthwise inputs "
+            f"the masked positions of the 56 x 56 and 28 x 28 grids were zero ({vis.calls} "
+            "checks)")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no ConvMAE-B checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 10.0)))
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
 @contextlib.contextmanager
 def _warnings_of(logger_module, sink: list):
     """Collects the messages `logger_module.warning` is given (and logs them)."""
@@ -3103,7 +3467,7 @@ def phase_first_steps() -> None:
     processes leave most cores idle after the first seconds."""
     specs = (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC, SIMCLR_SPEC, MOCO_SPEC, SIMSIAM_SPEC, MOCOBYOL_SPEC,
              SWAV_SPEC, DENSECL_SPEC, PIXPRO_SPEC, FASTMOCO_SPEC, CLIP_SPEC, CLIP_R50_SPEC,
-             DINO_SPEC, DINOV2_SPEC)
+             DINO_SPEC, DINOV2_SPEC, DVAE_SPEC, BEIT_SPEC, CAE_SPEC, CONVMAE_SPEC)
     with tempfile.TemporaryDirectory() as tmp:
         for spec in specs:
             _FIRST_STEPS[spec.tag] = _grads_card_vs_cpu(spec, tmp)
@@ -3188,6 +3552,9 @@ def main() -> None:
     _timed("train CLIP-ViT-B/32", phase_train_clip)
     _timed("train DINO-ViT-S/16", phase_train_dino)
     _timed("train DINOv2-ViT-S/14", phase_train_dinov2)
+    _timed("train BEiT-B/16", phase_train_beit)
+    _timed("train CAE-B/16", phase_train_cae)
+    _timed("train ConvMAE-B", phase_train_convmae)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

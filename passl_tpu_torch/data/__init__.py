@@ -7,8 +7,10 @@ Mixup/Cutmix `batch_transforms`), which give the JAX package's batches bit
 for bit from the same config and seed. This process's rank and the world
 size come from `torch.distributed` when it is initialised, else 0 and 1.
 Batches are numpy; `to_device` makes them tensors on an explicit device.
-The mask transforms (`masking`) and the token-label datasets are not copied
-yet.
+The mask transforms (`masking`: BEiT's and CAE's `MaskingGenerator`,
+`RandomMaskingGenerator`, `BEiTTwoViewsWithMask`) register with the
+transforms on import, as in the JAX package. The token-label datasets are
+not copied yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.distributed as dist
 
 from . import autoaugment  # noqa: F401  (registers AutoAugment/RandAugment/AugMix/TimmAutoAugment)
 from . import batch_transforms as _bt
+from . import masking  # noqa: F401  (registers mask transforms)
 from .datasets import DATASETS
 from .loader import DataLoader, DistributedBatchSampler, RepeatedAugSampler
 

@@ -21,6 +21,8 @@ match), the transforms rewrite the fresh or pretrained parameters once
 before the train state is built (a resumed checkpoint is taken as saved),
 and the train step applies the transforms and then moves each target after
 every applied optimizer step.
+A model that rejects a top-level `Model.remat` (a registered factory passes
+it on) is built without it, with the JAX engine's warning.
 `Global.pretrained_model` loads as the JAX loader does: missing entries and
 shape mismatches keep the init, a `pos_embed` of another grid is resized,
 keys the model lacks are ignored.
@@ -92,13 +94,37 @@ def _device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
+def build_model_dropping_remat(model_cfg: Dict[str, Any]) -> torch.nn.Module:
+    """`build_model`, and where the model rejects a top-level `remat`, the
+    build again without it, with the JAX engine's warning (`engine.py:251-266`).
+    Only a registered factory passes it on (`convvit_base_patch16`): the
+    registry leaves a keyword a class lacks out, so the BEiT finetune configs'
+    `Model.remat` never reaches BEiTFinetune, silently, as in JAX. Any other
+    rejected key raises, a nested one too (`encoder.remat` in BEiTPretrain, as
+    the JAX init raises). `model_cfg` loses the key it drops."""
+    try:
+        return build_model(model_cfg)
+    except TypeError as exc:
+        if "remat" not in model_cfg or "'remat'" not in str(exc):
+            raise
+        model_cfg.pop("remat")
+        logger.warning(f"model {model_cfg.get('name', 'model')} does not support remat; "
+                       "recompute ignored")
+        return build_model(model_cfg)
+
+
 def model_optimizer(model: torch.nn.Module, opt_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
                     lr_args: tuple = (1, 1)):
     """The optimizer the engine builds for `model` from the `Optimizer` block
     (`grad_clip` taken out): the model's `frozen_patterns`, its
     `optimizer_overrides` after the config's `param_group` (a config group
     wins on first match, JAX `engine.py:310-313`), and the depth that
-    `layerwise_decay` counts."""
+    `layerwise_decay` counts: the config's `depth`, else the model's top-level
+    `blocks`. JAX reads the model's `depth` field (`engine.py:306`); every port
+    model with top-level `blocks` is one whose JAX twin has `depth` equal to
+    their count, and none other has either, so the two agree (BEiTFinetune,
+    whose blocks sit in its encoder, and ConvViT, whose stages are `blocks1`
+    to `blocks3`, decay nothing and warn, as in JAX)."""
     num_layers = int(model_cfg.get("depth", 0) or len(getattr(model, "blocks", ())))
     if num_layers == 0 and (opt_cfg.get("layerwise_decay") or 0):
         logger.warning("Optimizer.layerwise_decay is set but the model depth is unknown "
@@ -183,7 +209,7 @@ class Engine:
         model_cfg = dict(config.get("Model", {}))
         if "dtype" not in model_cfg and self.policy.compute_dtype != torch.float32:
             model_cfg["dtype"] = self.policy.compute_dtype
-        self.model = build_model(model_cfg)
+        self.model = build_model_dropping_remat(model_cfg)
         ema_map = list(self.model.ema_map()) if hasattr(self.model, "ema_map") else []
         transforms = (list(self.model.param_transforms())
                       if hasattr(self.model, "param_transforms") else [])

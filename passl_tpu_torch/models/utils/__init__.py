@@ -7,12 +7,13 @@ import torch
 
 
 class FixedTable:
-    """A fixed f32 table (numpy), not a parameter and not in the state_dict,
-    copied to a device once on first use there (a model built on the meta
-    device, as the exported artifact loads, needs no buffer filled)."""
+    """A fixed table (numpy, f32 unless `dtype` says otherwise), not a
+    parameter and not in the state_dict, copied to a device once on first use
+    there (a model built on the meta device, as the exported artifact loads,
+    needs no buffer filled)."""
 
-    def __init__(self, array: np.ndarray):
-        self.array = np.ascontiguousarray(array, dtype=np.float32)
+    def __init__(self, array: np.ndarray, dtype=np.float32):
+        self.array = np.ascontiguousarray(array, dtype=dtype)
         self._on: dict = {}
 
     def on(self, device: torch.device) -> torch.Tensor:

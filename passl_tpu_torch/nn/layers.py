@@ -90,6 +90,65 @@ class Conv1x1(nn.Module):
         return F.linear(x.to(dt), self.weight.flatten(1).to(dt), self.bias.to(dt))
 
 
+class Conv(nn.Module):
+    """flax `Conv(features, (k, k), strides, padding, feature_group_count,
+    dtype=...)` over NCHW: weight OIHW `[out, in / groups, k, k]` in f32
+    (lecun-normal, flax's default, unless `kernel_init` says otherwise) and a
+    zero bias, computed at `dtype`. `padding` is the pixels added on each
+    side (flax's int padding)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, dtype: torch.dtype = torch.float32,
+                 kernel_init: Callable = tinit.lecun_normal_):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.kernel_init = kernel_init
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.kernel_init(self.weight, generator=generator)
+        tinit.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+                        self.padding, groups=self.groups)
+
+
+class ConvTranspose(nn.Module):
+    """flax `ConvTranspose(features, (k, k), strides=(s, s), padding="SAME",
+    dtype=...)` over NCHW, for even k = 2 s: weight IOHW `[in, out, k, k]` in
+    f32, lecun-normal over flax's fan in (k k in) and a zero bias. flax does
+    not flip its kernel (`transpose_kernel=False`): its kernel HWIO is this
+    weight flipped in H and W (`utils.convert` maps one to the other)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 4,
+                 stride: int = 2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if kernel_size != 2 * stride:
+            raise NotImplementedError("ConvTranspose: SAME padding is ported for k = 2 s only")
+        self.compute_dtype = dtype
+        self.stride, self.padding = stride, (kernel_size - stride) // 2
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels,
+                                               kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        fan_in = self.weight.shape[0] * self.weight.shape[2] * self.weight.shape[3]
+        std = (1.0 / fan_in) ** 0.5 / tinit._TRUNC_STD_2
+        torch.nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=generator)
+        tinit.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+                                  self.padding)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax `LayerNorm(dtype=...)`: statistics and affine in f32 (f64 for a
     model run in f64), output at `dtype`."""

@@ -10,7 +10,13 @@ torch `state_dict` of the entries under `--prefix`, a dotted module path:
 `encoder_q.backbone` (MoCo), `encoder.backbone` (SimSiam),
 `student.backbone` (DINO, DINOv2; `--rename encoder` for their probes, as
 `tests/e2e/run_learning_check.sh:34-42` does; DINOv2's `mask_token` is one
-entry the probe does not take).
+entry the probe does not take), `encoder` (BEiT, `--rename encoder`; its
+`mask_token` too). `--prefix` takes several paths, comma-separated, where a
+model keeps its encoder at its top level (CAE: `patch_embed,blocks,norm
+--no-strip-prefix`), and the empty prefix takes every entry (a dVAE
+checkpoint's, `--rename tokenizer` for BEiT's and CAE's
+`Global.pretrained_model`: the tokenizer takes its encoder and ignores its
+codebook and decoder), as `tests/e2e/run_learning_check.sh:85-183` does.
 The BatchNorm running statistics travel with the parameters (the JAX
 tool's `batch_stats` bundling): a frozen backbone normalizing with fresh
 statistics gives useless features.
@@ -33,7 +39,9 @@ measures nothing.
 
 MAE's encoder is no sub-module of its own: `mae_encoder` takes it out of a
 `MaskedAutoencoderViT` state (the learning check's extract, as
-`tests/e2e/run_learning_check.sh:175-212` does for the JAX package).
+`tests/e2e/run_learning_check.sh:175-212` does for the JAX package), and
+`convmae_encoder` ConvMAE's stages out of a `MaskedAutoencoderConvViT`'s
+(`:160-173`).
 """
 from __future__ import annotations
 
@@ -50,7 +58,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser("passl_tpu_torch extract weights")
     ap.add_argument("--checkpoint", required=True)
     ap.add_argument("--prefix", required=True,
-                    help="module path of the entries, e.g. encoder_q.backbone")
+                    help="module path of the entries, e.g. encoder_q.backbone; several "
+                         "comma-separated; empty for every entry")
     ap.add_argument("--output", required=True)
     ap.add_argument("--strip-prefix", action=argparse.BooleanOptionalAction, default=True,
                     help="drop the prefix from saved keys (--no-strip-prefix keeps it)")
@@ -60,16 +69,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _roots(prefix: str) -> tuple:
+    """'a.b,c' -> ('a.b.', 'c.'); '' -> ('',): every name starts with it."""
+    return tuple(p.replace("/", ".").strip().rstrip(".") + "." if p.strip() else ""
+                 for p in prefix.split(","))
+
+
 def extract(state: dict, prefix: str, strip_prefix: bool = True,
             rename: Optional[str] = None) -> dict:
     """The entries of a model `state_dict` under `prefix` (parameters and
-    buffers), renamed as the CLI's flags say; SystemExit when none is."""
-    prefix = prefix.replace("/", ".").rstrip(".") + "."
-    cut = len(prefix) if strip_prefix else 0
-    picked = {k[cut:]: v for k, v in state.items() if k.startswith(prefix)}
+    buffers; several comma-separated paths, or '' for all), renamed as the
+    CLI's flags say; SystemExit when none is."""
+    roots = _roots(prefix)
+    if strip_prefix and len(roots) > 1:
+        raise SystemExit(f"--prefix {prefix}: several paths are kept whole (--no-strip-prefix)")
+    cut = len(roots[0]) if strip_prefix else 0
+    picked = {k[cut:]: v for k, v in state.items() if k.startswith(roots)}
     if not picked:
         available = sorted({k.split(".")[0] for k in state})
-        raise SystemExit(f"no entries under '{prefix[:-1]}'. top-level names: {available}")
+        raise SystemExit(f"no entries under '{prefix}'. top-level names: {available}")
     if rename:
         picked = {f"{rename}.{k}": v for k, v in picked.items()}
     return picked
@@ -83,8 +101,7 @@ def unfilled(config_path: str, weights: str, root: str) -> list:
         model = build_model(model_cfg)
     model.to_empty(device="cpu")
     report = io.load_pretrained(model, weights)
-    root = root.replace("/", ".").rstrip(".") + "."
-    return sorted(k for k in report["missing"] + report["mismatched"] if k.startswith(root))
+    return sorted(k for k in report["missing"] + report["mismatched"] if k.startswith(_roots(root)))
 
 
 def require_filled(config_path: str, weights: str, root: str) -> None:
@@ -116,6 +133,20 @@ def mae_encoder(state: dict, img_size: int, rename: str = "backbone") -> dict:
     picked[f"{rename}.pos_embed"] = torch.from_numpy(table)
     picked[f"{rename}.fc_norm.weight"] = torch.ones(weight.shape[0])
     picked[f"{rename}.fc_norm.bias"] = torch.zeros(weight.shape[0])
+    return picked
+
+
+def convmae_encoder(state: dict, rename: str = "backbone") -> dict:
+    """The three stages of a `MaskedAutoencoderConvViT` state (`patch_embed1`
+    to `patch_embed4`, `blocks1` to `blocks3`; not the stage decodes, the
+    pretrain `norm` or the decoder) under `rename`, and the global-pool
+    `ConvViT`'s `fc_norm` at a LayerNorm's init (ones, zeros), where the JAX
+    check's fresh probe starts it: the sin-cos table is fixed in both models."""
+    picked = {f"{rename}.{k}": v for k, v in state.items()
+              if k.startswith(("patch_embed", "blocks1.", "blocks2.", "blocks3."))}
+    dim = state["patch_embed4.weight"].shape[0]
+    picked[f"{rename}.fc_norm.weight"] = torch.ones(dim)
+    picked[f"{rename}.fc_norm.bias"] = torch.zeros(dim)
     return picked
 
 

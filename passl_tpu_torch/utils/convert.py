@@ -2,9 +2,15 @@
 
 Names: a flax module path `blocks_3/attn/qkv/kernel` becomes
 `blocks.3.attn.qkv.weight` (a module name ending in `_<i>` is item i of a
-ModuleList where the model holds such items; CLIP's `ln_1` stays), `kernel` and LayerNorm's `scale` become `weight`, other leaf
-names stay. Layouts: a Dense kernel `[in, out]` becomes `[out, in]`, a Conv
-kernel HWIO becomes OIHW. BatchNorm statistics come from the flax
+ModuleList where the model holds such items; CLIP's `ln_1` stays), `kernel`
+and LayerNorm's `scale` become `weight`, other leaf names stay (an
+`nn.Embed`'s `embedding`, as the dVAE's `codebook/embedding`; BEiT's
+`relative_position_bias_table`, `gamma_1`, `gamma_2`). Layouts: a Dense
+kernel `[in, out]` becomes `[out, in]`, a Conv kernel HWIO becomes OIHW (a
+depthwise `[k, k, 1, c]` becomes `[c, 1, k, k]`), and the kernel of a
+transposed conv (a `nn.layers.ConvTranspose` in the model) HWIO becomes IOHW
+flipped in H and W (`conv_transpose_to_torch`): flax's `ConvTranspose` does
+not flip its kernel, torch's `conv_transpose2d` does. BatchNorm statistics come from the flax
 `batch_stats` tree: `mean` becomes `running_mean` and `var` `running_var`.
 The leaves of another variable collection (`collections`, e.g. MoCo's `ssl`
 with its `queue` and `queue_ptr`) land on the buffers of the same names,
@@ -57,10 +63,30 @@ def _modules(modules: list[str], names=None) -> list[str]:
     return out
 
 
+def conv_transpose_to_torch(kernel: np.ndarray) -> np.ndarray:
+    """flax `ConvTranspose` kernel HWIO -> torch `conv_transpose2d` weight
+    IOHW, flipped in H and W."""
+    return np.ascontiguousarray(np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def conv_transpose_to_flax(weight: np.ndarray) -> np.ndarray:
+    """The inverse of `conv_transpose_to_torch`: IOHW -> HWIO, unflipped."""
+    return np.ascontiguousarray(np.asarray(weight).transpose(2, 3, 0, 1)[::-1, ::-1])
+
+
+def transposed_convs(model: torch.nn.Module) -> frozenset:
+    """The names of the model's transposed convs (`nn.layers.ConvTranspose`)."""
+    from ..nn.layers import ConvTranspose
+
+    return frozenset(n for n, m in model.named_modules() if isinstance(m, ConvTranspose))
+
+
 def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
-                verbatim: bool = False, names=None) -> tuple[str, np.ndarray]:
+                verbatim: bool = False, names=None,
+                transposed: frozenset = frozenset()) -> tuple[str, np.ndarray]:
     """A flax leaf's torch name and layout (`names`: the model's, where a
-    module name ends in `_<i>` without being a list item)."""
+    module name ends in `_<i>` without being a list item; `transposed`: the
+    torch names of its transposed convs)."""
     *modules, leaf = path.split("/")
     modules = _modules(modules, names)
     if verbatim:
@@ -73,6 +99,8 @@ def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
         leaf = "weight"
         if arr.ndim == 2:
             arr = arr.T  # Dense [in, out] -> Linear [out, in]
+        elif arr.ndim == 4 and ".".join(modules) in transposed:
+            arr = conv_transpose_to_torch(arr)  # ConvTranspose HWIO -> IOHW, flipped
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # Conv HWIO -> OIHW
         else:
@@ -85,7 +113,9 @@ def _torch_name(path: str, arr: np.ndarray, stats: bool = False,
 def flax_path(name: str, ndim: int) -> str:
     """The flax path of a port parameter (the inverse of `_torch_name` on
     parameters): `blocks.3.attn.qkv.weight` (2-D) -> `blocks_3/attn/qkv/kernel`;
-    a 2-D or 4-D `weight` is a Dense or Conv `kernel`, a 1-D one a norm's `scale`."""
+    a 2-D or 4-D `weight` is a Dense, Conv or ConvTranspose `kernel`, a 1-D
+    one a norm's `scale`; other leaves keep their names (`codebook/embedding`,
+    `relative_position_bias_table`, `gamma_1`)."""
     *modules, leaf = name.split(".")
     path: list[str] = []
     for m in modules:
@@ -105,13 +135,14 @@ def flax_to_torch(params: Mapping, model: torch.nn.Module,
     variable collections by name): the flax trees as numpy arrays -> a
     state_dict for `model`."""
     target = model.state_dict()
+    transposed = transposed_convs(model)
     out: dict[str, torch.Tensor] = {}
     leaves = [(p, a, False, False) for p, a in _flatten(params).items()]
     leaves += [(p, a, True, False) for p, a in _flatten(batch_stats or {}).items()]
     for tree in (collections or {}).values():
         leaves += [(p, a, False, True) for p, a in _flatten(tree).items()]
     for path, arr, stats, verbatim in leaves:
-        key, arr = _torch_name(path, arr, stats, verbatim, target)
+        key, arr = _torch_name(path, arr, stats, verbatim, target, transposed)
         if key not in target:
             raise KeyError(f"flax leaf {path!r} maps to {key!r}, which the model does not have")
         if tuple(arr.shape) != tuple(target[key].shape):

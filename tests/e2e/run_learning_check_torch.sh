@@ -8,8 +8,9 @@
 #
 #   tests/e2e/run_learning_check_torch.sh \
 #       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|mocov3|mae \
-#       |clip|dino|dinov2|random|random_mocov3|random_mae|random_clip|random_dino \
-#       |random_dinov2 [output dir [-o Section.key=value ...]]
+#       |clip|dino|dinov2|beit|cae|convmae|random|random_mocov3|random_mae|random_clip \
+#       |random_dino|random_dinov2|random_beit|random_cae|random_convmae \
+#       [output dir [-o Section.key=value ...]]
 #
 # Overrides after the output dir go to the pretrain and to the probe alike
 # (e.g. -o Global.seed=1 for another seed, -o FP16.enable=False for f32).
@@ -25,11 +26,19 @@
 # student's backbone (`student.backbone`, re-rooted under `encoder`). CLIP is
 # held by held-out text->image retrieval, not a probe
 # (tests/e2e/clip_retrieval_check_torch.py, R@1 over the 10 class captions,
-# bar 0.5). `random`, `random_mocov3`, `random_mae`, `random_dino` and
-# `random_dinov2` are the floors: no pretraining, the same probe over the
-# untrained ResNet-18 backbone, MoCo v3, MAE (its sin-cos table injected),
-# DINO or DINOv2 encoder; `random_clip` is the retrieval of the untrained
-# CLIP. A method learned only by as much as its reading clears its floor.
+# bar 0.5). BEiT and CAE first train their dVAE tokenizer with the port
+# (tests/e2e/dvae_structured.yaml), which must spread 32 images over at least
+# 16 of its 512 codes (the JAX check's collapse guard), and hand its entries
+# under `tokenizer` to the pretrain as `Global.pretrained_model`, as
+# tests/e2e/run_learning_check.sh:85-121 does; BEiT's probe takes the
+# pretrain's `encoder`, CAE's its top-level `patch_embed`, `blocks` and
+# `norm`, ConvMAE's its three stages under `backbone` with `fc_norm` at init.
+# `random`, `random_mocov3`, `random_mae`, `random_dino`, `random_dinov2`,
+# `random_beit`, `random_cae` and `random_convmae` are the floors: no
+# pretraining, the same probe over the untrained ResNet-18 backbone, MoCo v3,
+# MAE (its sin-cos table injected), DINO, DINOv2, BEiT, CAE or ConvViT
+# encoder; `random_clip` is the retrieval of the untrained CLIP. A method
+# learned only by as much as its reading clears its floor.
 # The floors print their reading and exit 0: they pass or fail no bar.
 set -euo pipefail
 cd "$(dirname "$0")/../.."
@@ -63,6 +72,14 @@ case "$METHOD" in
   dinov2) CFG=tests/e2e/dinov2_structured.yaml; PREFIX=student.backbone; RENAME=encoder
           PROBE_CFG=tests/e2e/probe_dinov2_structured.yaml
           PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.5 ;;
+  beit)   CFG=tests/e2e/beit_structured.yaml; PREFIX=encoder; RENAME=encoder
+          PROBE_CFG=tests/e2e/probe_beit_structured.yaml; TOKENIZER=1
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
+  cae)    CFG=tests/e2e/cae_structured.yaml; PREFIX=patch_embed,blocks,norm; RENAME=
+          PROBE_CFG=tests/e2e/probe_cae_structured.yaml; TOKENIZER=1 ;;
+  convmae) CFG=tests/e2e/convmae_structured.yaml; PREFIX=__convmae__
+          PROBE_CFG=tests/e2e/probe_convmae_structured.yaml
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
   random) CFG=; PREFIX= ;;
   random_mocov3) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml ;;
   random_mae) CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
@@ -70,15 +87,79 @@ case "$METHOD" in
   random_clip) CFG=tests/e2e/clip_structured.yaml; PREFIX=__clip__ ;;
   random_dino) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_dino_structured.yaml ;;
   random_dinov2) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_dinov2_structured.yaml ;;
+  random_beit) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_beit_structured.yaml ;;
+  random_cae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_cae_structured.yaml ;;
+  random_convmae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_convmae_structured.yaml ;;
   *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav |" \
-       "densecl | pixpro | fastmoco | mocov3 | mae | clip | dino | dinov2 | random |" \
-       "random_mocov3 | random_mae | random_clip | random_dino | random_dinov2)"; exit 2 ;;
+       "densecl | pixpro | fastmoco | mocov3 | mae | clip | dino | dinov2 | beit | cae |" \
+       "convmae | random | random_mocov3 | random_mae | random_clip | random_dino |" \
+       "random_dinov2 | random_beit | random_cae | random_convmae)"; exit 2 ;;
 esac
 FLOOR=$([[ "$METHOD" == random* ]] && echo 1 || echo 0)
 rm -rf "$OUT"
 mkdir -p "$OUT"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 start=$(date +%s)
+
+hold_pretrain_loss() {
+  [ -n "${LOSS_BAR:-}" ] || return 0
+  # where the probe cannot tell the method from no training (random_mocov3
+  # reads 0.998, random_dino 0.996, random_dinov2 1.000, random_convmae 0.969;
+  # BEiT's probe reads below random_beit's), its own loss must fall, over the
+  # last epoch to at most LOSS_BAR of the first step's (with the learning rate
+  # at 0 MoCo v3's holds near its first step's, DINO's and DINOv2's rise as the
+  # centers move)
+  python - "$OUT/pretrain.log" "$LOSS_BAR" "$METHOD" <<'PYEOF'
+import re
+import sys
+
+log, bar, method = open(sys.argv[1]).read(), float(sys.argv[2]), sys.argv[3]
+rows = [(int(e), float(loss)) for e, loss in re.findall(
+    r"\[Train\]\[Epoch (\d+)/\d+\]\[Iter: *\d+/\d+\] .*? loss: ([0-9.]+)", log)]
+last = [r for r in rows if r[0] == rows[-1][0]]
+loss = sum(r[1] for r in last) / len(last)
+print(f"{method} pretrain loss: {rows[0][1]:.5f} at the first step, {loss:.5f} over epoch "
+      f"{rows[-1][0]}; bar {bar} x the first: {bar * rows[0][1]:.5f}")
+if not loss <= bar * rows[0][1]:
+    raise SystemExit(f"{method}'s pretrain loss did not fall to the bar")
+PYEOF
+}
+
+if [ -n "${TOKENIZER:-}" ]; then
+  # the dVAE tokenizer the masked-token targets need, trained with the port; its
+  # entries under `tokenizer` become the pretrain's Global.pretrained_model
+  python -m passl_tpu_torch.tools.train -c tests/e2e/dvae_structured.yaml --device cuda \
+    -o Global.output_dir="$OUT/dvae" "${EXTRA[@]}" | tee "$OUT/dvae.log"
+  python -m passl_tpu_torch.tools.extract_weights --checkpoint "$OUT/dvae/latest.pt" \
+    --prefix "" --rename tokenizer --output "$OUT/tokenizer.pt" --check-config "$CFG"
+  python - "$OUT" <<'PYEOF'
+import sys
+
+import numpy as np
+import torch
+
+from passl_tpu_torch.data.datasets import StructuredSyntheticDataset
+from passl_tpu_torch.models.discrete_vae import DiscreteVAE
+from passl_tpu_torch.utils import io
+
+# the collapse guard: a tokenizer that puts the synthetic set on a few codes
+# makes the masked-token loss trivial and the check vacuous
+out = sys.argv[1]
+state = torch.load(io.resolve_checkpoint(f"{out}/dvae/latest.pt"), map_location="cpu",
+                   weights_only=True)["model"]
+tok = DiscreteVAE(vocab_size=512, hidden_dim=128, num_resblocks=1)
+tok.load_state_dict(state)
+ds = StructuredSyntheticDataset(size=32, image_size=32, num_classes=10, noise=0.2,
+                                with_label=False)
+imgs = np.stack([np.asarray(ds[i], np.float32) for i in range(32)]) / 255.0
+with torch.no_grad():
+    used = len(torch.unique(tok.tokenize(torch.from_numpy(imgs))))
+print(f"dVAE codebook usage on 32 images: {used}/512 codes")
+if used < 16:
+    raise SystemExit(f"dVAE collapsed: only {used} codes in use")
+PYEOF
+  PRETRAIN_EXTRA+=(-o Global.pretrained_model="$OUT/tokenizer.pt")
+fi
 
 if [ "$PREFIX" = __clip__ ]; then
   # CLIP: held-out text->image retrieval of the trained (or, for the floor,
@@ -139,34 +220,39 @@ print(f"MAE extract: {len(picked)} tensors (sin-cos pos_embed injected, fc_norm 
 extract_weights.require_filled(probe, f"{out}/backbone.pt", "backbone")
 PYEOF
   PRETRAINED="$OUT/backbone.pt"
+elif [ "$PREFIX" = __convmae__ ]; then
+  # ConvMAE's three stages under `backbone`, the global-pool probe's fc_norm at
+  # init; every probe backbone entry filled
+  python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
+    -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" "${PRETRAIN_EXTRA[@]}" \
+    | tee "$OUT/pretrain.log"
+  hold_pretrain_loss
+  python - "$OUT" "$PROBE_CFG" <<'PYEOF'
+import sys
+
+import torch
+
+from passl_tpu_torch.tools import extract_weights
+from passl_tpu_torch.utils import io
+
+out, probe = sys.argv[1:]
+state = torch.load(io.resolve_checkpoint(f"{out}/pretrain/latest.pt"), map_location="cpu",
+                   weights_only=True)["model"]
+picked = extract_weights.convmae_encoder(state)
+torch.save(picked, f"{out}/backbone.pt")
+print(f"ConvMAE extract: {len(picked)} tensors (fc_norm at init)")
+extract_weights.require_filled(probe, f"{out}/backbone.pt", "backbone")
+PYEOF
+  PRETRAINED="$OUT/backbone.pt"
 else
   python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
     -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" "${PRETRAIN_EXTRA[@]}" \
     | tee "$OUT/pretrain.log"
-  if [ -n "${LOSS_BAR:-}" ]; then
-    # the probe cannot tell the method from no training (random_mocov3 reads
-    # 0.998, random_dino 0.996, random_dinov2 1.000): its own loss must fall,
-    # over the last epoch to at most LOSS_BAR of the first step's (with the
-    # learning rate at 0 MoCo v3's holds near its first step's, DINO's and
-    # DINOv2's rise as the centers move)
-    python - "$OUT/pretrain.log" "$LOSS_BAR" "$METHOD" <<'PYEOF'
-import re
-import sys
-
-log, bar, method = open(sys.argv[1]).read(), float(sys.argv[2]), sys.argv[3]
-rows = [(int(e), float(loss)) for e, loss in re.findall(
-    r"\[Train\]\[Epoch (\d+)/\d+\]\[Iter: *\d+/\d+\] .*? loss: ([0-9.]+)", log)]
-last = [r for r in rows if r[0] == rows[-1][0]]
-loss = sum(r[1] for r in last) / len(last)
-print(f"{method} pretrain loss: {rows[0][1]:.5f} at the first step, {loss:.5f} over epoch "
-      f"{rows[-1][0]}; bar {bar} x the first: {bar * rows[0][1]:.5f}")
-if not loss <= bar * rows[0][1]:
-    raise SystemExit(f"{method}'s pretrain loss did not fall to the bar")
-PYEOF
-  fi
+  hold_pretrain_loss
+  # CAE keeps its encoder at the top level under the probe's own names: no rename
   python -m passl_tpu_torch.tools.extract_weights \
-    --checkpoint "$OUT/pretrain/latest.pt" \
-    --prefix "$PREFIX" --rename "$RENAME" \
+    --checkpoint "$OUT/pretrain/latest.pt" --prefix "$PREFIX" \
+    $([ -n "$RENAME" ] && echo "--rename $RENAME" || echo --no-strip-prefix) \
     --output "$OUT/backbone.pt" --check-config "$PROBE_CFG"
   PRETRAINED="$OUT/backbone.pt"
 fi

@@ -260,15 +260,15 @@ def _config(tmp_path, *overrides):
     return cfg_util.get_config(TINY_CFG, overrides=[f"Global.output_dir={tmp_path}", *overrides])
 
 
-def _adamw_moments(opt_state, names=None) -> dict:
+def _adamw_moments(opt_state, names=None, transposed=frozenset()) -> dict:
     """The JAX AdamW state {path: {m, v}} as the port's (exp_avg, exp_avg_sq)
     (`names`: the model's, where a module name ends in `_<i>` without being
-    a list item, as CLIP's `ln_1`)."""
+    a list item, as CLIP's `ln_1`; `transposed`: its transposed convs)."""
     out = {}
     for path, leaf in _flatten(opt_state).items():
         head, kind = path.rsplit("/", 1)
         if kind in ("m", "v"):
-            name, arr = _torch_name(head, leaf, names=names)
+            name, arr = _torch_name(head, leaf, names=names, transposed=transposed)
             out.setdefault(name, {})[kind] = torch.from_numpy(np.array(arr, np.float32))
     return out
 

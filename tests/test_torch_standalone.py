@@ -6,8 +6,9 @@ interpreter that imports the port's entry points finds neither in
 `sys.modules`; the port's own copies of the data pipeline give the JAX
 package's batches bit for bit from the same config and seed, the captioned
 datasets' included; its copy of `models/utils/pos_embed.py` is the JAX file
-under its header, its tables bit for bit; and its copy of
-`data/tokenizer.py` is the JAX file under its header, reading its own copy
+under its header, its tables bit for bit; its copy of `data/masking.py` is the JAX file
+under its header, its masks and BEiT's and CAE's two-view batches bit for
+bit; and its copy of `data/tokenizer.py` is the JAX file under its header, reading its own copy
 of the BPE vocabulary (the JAX asset's sha256), its tokens bit for bit.
 """
 import ast
@@ -127,6 +128,71 @@ def test_port_loader_gives_the_jax_loaders_batches_bitwise(config, size, image_s
     assert images.shape == (batch, image_size, image_size, 3)
     if "vit_base" in config:  # soft labels from Mixup/Cutmix
         assert labels.shape == (batch, 1000) and labels.dtype == np.float32
+
+
+# ----------------------------------------------------------- the mask copy
+
+
+def test_masking_copy_is_the_jax_file_under_its_header():
+    """`passl_tpu_torch/data/masking.py` is the JAX package's file under two
+    header lines, its three transforms registered; BEiT's block masks (75 of
+    196, and CAE's 98) and the uniform masks are the JAX generators' bitwise
+    from the same `random` and numpy seeds."""
+    import random
+
+    from passl_tpu.data import masking as jax_masking
+    from passl_tpu_torch.data import masking as port_masking
+    from passl_tpu_torch.data.transforms import TRANSFORMS
+
+    with open(os.path.join(REPO, "passl_tpu", "data", "masking.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "passl_tpu_torch", "data", "masking.py")) as f:
+        lines = f.read().split("\n")
+    assert lines[0].startswith("# Copied from passl_tpu/data/masking.py")
+    assert "\n".join(lines[2:]) == jax_src
+    assert TRANSFORMS["BEiTTwoViewsWithMask"] is port_masking.BEiTTwoViewsWithMask
+    assert TRANSFORMS["MaskingGenerator"] is port_masking.MaskingGenerator
+    assert TRANSFORMS["RandomMaskingGenerator"] is port_masking.RandomMaskingGenerator
+    for args in ((14, 75, 16), (14, 98, 16), (4, 6, 2)):
+        draws = []
+        for mod in (jax_masking, port_masking):
+            random.seed(7)
+            gen = mod.MaskingGenerator(*args)
+            draws.append(np.stack([gen() for _ in range(200)]))
+        np.testing.assert_array_equal(draws[0], draws[1])
+        assert draws[1].sum(1).max() <= args[1]
+    draws = []
+    for mod in (jax_masking, port_masking):
+        np.random.seed(3)
+        gen = mod.RandomMaskingGenerator(14, 0.75)
+        draws.append(np.stack([gen() for _ in range(20)]))
+    np.testing.assert_array_equal(draws[0], draws[1])
+
+
+@pytest.mark.parametrize("config", ["beit/beit_base_patch16_224_in1k.yaml",
+                                    "cae/cae_base_patch16_224_in1k.yaml"])
+def test_port_loader_gives_the_two_view_mask_batches_bitwise(config):
+    """BEiT's and CAE's `BEiTTwoViewsWithMask` (the shared crop, flip and
+    jitter, the two normalizations, the block mask) through both loaders on
+    synthetic images: the (view, tokenizer view, mask) batches and labels equal."""
+    cfg = cfg_util.get_config(os.path.join(REPO, "configs", config))
+    dl = copy.deepcopy(dict(cfg["DataLoader"]["Train"]))
+    dl["dataset"] = {"name": "SyntheticDataset", "size": 8, "image_size": 64,
+                     "num_classes": 10, "transform": dl["dataset"]["transform"]}
+    dl["sampler"] = {**dl["sampler"], "batch_size": 4}
+    dl["loader"] = {"num_workers": 2, "prefetch": 2}
+    want = _first_batches(jax_build_dataloader, dl, 42)
+    got = _first_batches(build_dataloader, dl, 42)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        (views, labels), (jviews, jlabels) = g, w
+        np.testing.assert_array_equal(labels, jlabels)
+        assert len(views) == len(jviews) == 3
+        for a, b in zip(views, jviews):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+        assert views[0].shape == views[1].shape == (4, 224, 224, 3)
+        assert views[2].shape == (4, 196) and views[2].dtype == np.int32
 
 
 # ---------------------------------------------------------- the model copies
