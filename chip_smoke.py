@@ -5,9 +5,13 @@ Run from the repo root:  python3 chip_smoke.py
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
    one nvcc per source, side by side, in a thread; meanwhile it takes every
-   SSL phase's first step on the card and on the CPU in f32 and f64 (phases
-   14-32 below hold them; no kernel runs there, and the nvcc processes leave
-   most cores idle after their first seconds).
+   SSL and classification phase's first step on the card and on the CPU in
+   f32 and f64 (phases 14-35 below hold them; no kernel runs there, and the
+   nvcc processes leave most cores idle after their first seconds). The
+   transformers' first steps (MoCo v3, MAE, CLIP's ViT towers, DINO, DINOv2,
+   BEiT, CAE, ConvMAE's stage 3 and decoder, XCiT, the distilled DeiT) run
+   at 4 of their blocks, every width kept: the CPU's f64 steps set the
+   script's floor beside the build.
 3. Holds the talking-heads forward against its plain PyTorch version on the
    card at the shapes CaiT uses, through whichever of its two kernels the C
    entry point picks (warp-row for bf16 / f16 with h <= 8 and k <= 256,
@@ -222,9 +226,11 @@ Run from the repo root:  python3 chip_smoke.py
    tower has no optimizer state; with stop_grad_conv1 the patch embedding
    moves by AdamW's decay alone and its bias not at all; loss finite, acc1 in
    [0, 1]; 48 forward, 24 dK/dV and 24 dQ launches a step; the flash path's
-   first-step gradients against the einsum path's (cosine >= 0.999); resume;
-   the first step card vs CPU at 4 pairs in f32 and f64 (einsum path), the
-   card's f32 error from f64 at most 20 times the CPU's.
+   first-step gradients against the einsum path's at 4 of the 12 blocks
+   (cosine >= 0.999; 16 / 8 / 8 launches); resume;
+   the first step card vs CPU at 4 pairs and 4 of the 12 blocks in f32 and
+   f64 (einsum path), the card's f32 error from f64 at most 20 times the
+   CPU's.
 26. Trains MAE ViT-B/16 on configs/mae/mae_vit_base_in1k.yaml with
    Model.attn_impl=flash: 256 images, AdamW, bf16, 8 steps. Checks: every
    mask holds 147 of 196 patches and every ids_restore is a permutation; the
@@ -252,7 +258,8 @@ Run from the repo root:  python3 chip_smoke.py
    optimizer state; after every step `center` is 0.9 of itself plus 0.1 of
    the mean of the teacher's outputs; 2 student forwards (one per
    resolution) and 1 teacher forward a step; resume with `center` bitwise as
-   saved; the first step card vs CPU at 4 images of 10 crops, as CLIP's.
+   saved; the first step card vs CPU at 4 images of 10 crops and 4 of the 12
+   blocks, as CLIP's.
 29. Trains DINOv2 ViT-S/14 on configs/dinov2/dinov2_vit_s14_pretrain_in1k.yaml:
    32 images of 2 x 224 + 8 x 98 crops, LayerScale 1e-5, bf16, 8 steps.
    Checks: the masked shares of the 256 patches of every global crop (each
@@ -262,9 +269,9 @@ Run from the repo root:  python3 chip_smoke.py
    centers follow their rule; 9 student forwards (the globals, then each
    local) and 1 teacher forward a step; `layerwise_decay: 0.9` warns and
    decays nothing, as in JAX; resume with both centers bitwise; the first
-   step card vs CPU at 4 images with one mask noise handed to both devices
-   (at LayerScale 1.0: at 1e-5 KoLeo's f32 distance goes negative at init in
-   both packages' formula).
+   step card vs CPU at 4 images and 4 of the 12 blocks with one mask noise
+   handed to both devices (at LayerScale 1.0: at 1e-5 KoLeo's f32 distance
+   goes negative at init in both packages' formula).
 30. Trains BEiT-B/16 on configs/beit/beit_base_patch16_224_in1k.yaml with a
    random tokenizer (Global.pretrained_model empty: the config's dVAE weights
    are a JAX file the port does not read): 64 images of two views and a
@@ -293,9 +300,34 @@ Run from the repo root:  python3 chip_smoke.py
    at each of the 4 CBlocks' depthwise inputs the masked positions of its
    56 x 56 or 28 x 28 grid are zero; resume; the first step card vs CPU with
    one noise handed to both devices.
-   Every SSL phase logs `[time]` lines: where its time goes (the first
-   steps, the main path, the profiled step, the resume).
-33. Prints the card line, a JSON line of the eight kernels' results, and
+33. Trains XCiT-S12/16 on configs/xcit/xcit_small_12_p16_224_in1k.yaml with
+   synthetic images (the config's DeiT transforms and Mixup / Cutmix, CE with
+   smoothing 0.1, AdamW with the global-norm clip): 128 images, bf16, 8 steps,
+   no kernel (XCA is two einsums, as in JAX). Checks: the recipe's model; no
+   kernel launched; the 12 LPI BatchNorms' statistics moved; resume; the first
+   step card vs CPU at 4 images without stochastic depth in f32 and f64, the
+   card's f32 distance from f64 at most twice the CPU's; then the trained
+   weights through export and Predictor in bf16 and in f32 on 4 requests of
+   32 images, the bf16 logits at cosine >= 0.999 of the f32 ones.
+34. Trains ConvNeXt-B on configs/classification/convnext_base_in1k.yaml the
+   same way: 128 images, drop path 0.5, the full-model EMA, bf16, 8 steps;
+   no kernel launched; resume; the first step card vs CPU at 6 of its 36
+   blocks (every width kept).
+35. Trains DeiT-B distilled from a RegNetY-4GF teacher on
+   configs/distill/deit_base_distilled_in1k.yaml (DistillationWrapper, hard
+   distillation, alpha 0.5) on the label-free loop: 64 images, bf16, 8 steps,
+   the student on einsum attention at 198 tokens (as in JAX), no kernel
+   launched. Checks: after every step the logged loss equals 0.5 CE(student,
+   labels) + 0.5 CE(student, argmax teacher) recomputed in f32 from the step's
+   logits to 1e-6; after 8 steps the teacher's parameters and BatchNorm
+   buffers are bitwise unchanged, it holds no optimizer state and stays in
+   eval mode; one pass of the eval loop returns the student's logits bitwise;
+   resume; the first step card vs CPU (the student without stochastic depth),
+   as XCiT's. Prints the student's top-1 agreement with the teacher a step.
+   Every SSL and classification phase from 14 on logs `[time]` lines: where
+   its time goes (the first steps, the main path, the profiled step, the
+   resume).
+36. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -340,7 +372,7 @@ from passl_tpu_torch.ops.attention import (flash_attention, flash_attention_di,
                                            flash_attention_dkv, flash_attention_dkv_ref,
                                            flash_attention_dq, flash_attention_dq_ref,
                                            flash_attention_fwd, flash_attention_fwd_ref,
-                                           flash_kernel_resources)
+                                           flash_kernel_resources, resolve_attn_impl)
 from passl_tpu_torch.ops.talking_heads import (talking_heads_bwd_kernel_for,
                                                talking_heads_bwd_resources,
                                                talking_heads_fwd_kernel_for,
@@ -1494,6 +1526,13 @@ def phase_augment() -> dict:
 # ------------------------------------------------- SSL ResNet-50: BYOL, SimCLR, MoCo v2
 
 
+# the blocks of a transformer's first step card vs CPU (every width kept): the
+# CPU's f64 steps set the script's floor beside the kernels' build (MoCo v3's
+# took 43.3 s and DINOv2's 29.8 s at 12 blocks on an H100 80GB HBM3's host at
+# 700 W; PERF.md §6)
+FIRST_STEP_BLOCKS = 4
+
+
 @dataclasses.dataclass(frozen=True)
 class SSLSpec:
     """An SSL recipe's training phase: its config, per-card batch (pairs),
@@ -1580,7 +1619,8 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
     DINO keeps its crop stacks around the synthetic images; CLIP's captions
     are `SyntheticTextImageDataset`'s token ids at the config's context
     length and the model's vocabulary), `batch` images or pairs,
-    TRAIN_STEPS steps."""
+    TRAIN_STEPS steps; a classifier's Eval block on 256 synthetic images,
+    evaluated only where the phase asks."""
     config = cfg_util.get_config(spec.config, overrides=[
         f"Global.output_dir={out_dir}", f"Global.max_train_step={TRAIN_STEPS}",
         "Global.print_batch_step=1", *spec.overrides, *overrides])
@@ -1599,6 +1639,12 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
                              **{k: v for k, v in dl["dataset"].items() if k == "with_label"})
     dl["sampler"]["batch_size"] = batch
     _loader_threads(dl["loader"], workers)
+    if "Eval" in config["DataLoader"]:  # a classifier's: 256 synthetic images, its transforms
+        ev = config["DataLoader"]["Eval"]
+        ev["dataset"] = dict(synthetic, size=256, transform=ev["dataset"]["transform"])
+        ev["sampler"]["batch_size"] = 128
+        _loader_threads(ev["loader"], 0)
+        config["Global"]["eval_during_train"] = False
     return config
 
 
@@ -2592,9 +2638,10 @@ MOCOV3_SPEC = SSLSpec(
     # f32 error from f64 read 1.36-5.27 times the CPU's at the config's seed
     # and four others (4.91 at 42), in the blocks, head and predictor alike;
     # TF32 products read 2.4e6 times: 20 tells the two apart
-    # (tests/perf/mocov3_f32_spread.py, H100 80GB HBM3 at 700 W)
-    4, ("Model.encoder.attn_impl=einsum",), "base.encoder.", "momentum.",
-    overrides=("Model.encoder.attn_impl=flash",), f32_error_ratio=20.0, watched=12,
+    # (tests/perf/mocov3_f32_spread.py, H100 80GB HBM3 at 700 W; at 12 blocks)
+    4, ("Model.encoder.attn_impl=einsum", f"Model.encoder.depth={FIRST_STEP_BLOCKS}"),
+    "base.encoder.", "momentum.", overrides=("Model.encoder.attn_impl=flash",),
+    f32_error_ratio=20.0, watched=FIRST_STEP_BLOCKS,
     watch=lambda n: n.startswith("base.encoder.blocks.") and n.endswith("attn.qkv.weight"))
 MOCOV3_BLOCKS = 12
 
@@ -2609,9 +2656,12 @@ def _mocov3_flash_vs_einsum(spec: SSLSpec, tmp: str) -> dict:
     places, and the contrastive loss at T = 0.2 over BatchNorm heads turns that
     rounding into gradient directions that part by more than the check's 1e-3
     even where both paths are plain PyTorch: f32 holds the kernels, whose bf16
-    versions the flash phases hold against their plain versions."""
+    versions the flash phases hold against their plain versions. At 4 of the
+    12 blocks (a cut for the script's time), every width kept."""
+    blocks = FIRST_STEP_BLOCKS
     engines = [Engine(_ssl_config(spec, os.path.join(tmp, f"grads_{impl}"), MOCOV3_GRAD_PAIRS,
-                                  "FP16.enable=False", f"Model.encoder.attn_impl={impl}"),
+                                  "FP16.enable=False", f"Model.encoder.attn_impl={impl}",
+                                  f"Model.encoder.depth={blocks}"),
                       mode="train", device="cuda") for impl in ("flash", "einsum")]
     e_k, e_p = engines
     check(_same_start(e_k, e_p), "MoCoV3-ViT-B/16: the two paths start from different weights")
@@ -2619,7 +2669,7 @@ def _mocov3_flash_vs_einsum(spec: SSLSpec, tmp: str) -> dict:
     _reset_launches(VIT_TRAIN)
     loss_k, g_k = _grads(e_k, batch)
     one = _flash_launches()
-    want = (4 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS, 2 * MOCOV3_BLOCKS)
+    want = (4 * blocks, 2 * blocks, 2 * blocks)
     check(one == want, f"MoCoV3-ViT-B/16: one f32 step launched {one}, want {want}")
     loss_p, g_p = _grads(e_p, batch)
     check(_flash_launches() == one, "MoCoV3-ViT-B/16: the einsum path launched a kernel")
@@ -2639,7 +2689,7 @@ def _mocov3_flash_vs_einsum(spec: SSLSpec, tmp: str) -> dict:
         f"launches (fwd, dkv, dq) {one}")
     # the same f32 function with the scale after the product and sums in
     # another order: 1e-3 of cosine is far above that, and a wrong term far below
-    check(cos_all >= 0.999 and cos_qkv[worst] >= 0.999 and len(cos_qkv) == MOCOV3_BLOCKS,
+    check(cos_all >= 0.999 and cos_qkv[worst] >= 0.999 and len(cos_qkv) == blocks,
           f"MoCoV3-ViT-B/16: flash and einsum gradients disagree: {cos_all}, {worst}")
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
           f"MoCoV3-ViT-B/16: losses disagree: {loss_k} vs {loss_p}")
@@ -2744,8 +2794,9 @@ MAE_ENCODER_BLOCKS, MAE_DECODER_BLOCKS = 12, 8
 MAE_SPEC = SSLSpec(
     "MAE-ViT-B/16", os.path.join(REPO, "configs", "mae", "mae_vit_base_in1k.yaml"),
     256,  # images: the JAX package's bench row (bench.py:279)
-    4, ("Model.attn_impl=einsum",), "", overrides=("Model.attn_impl=flash",), views=1,
-    f32_error_ratio=2.0, watched=MAE_ENCODER_BLOCKS + MAE_DECODER_BLOCKS,
+    4, ("Model.attn_impl=einsum", f"Model.depth={FIRST_STEP_BLOCKS}",
+        f"Model.decoder_depth={FIRST_STEP_BLOCKS}"), "", overrides=("Model.attn_impl=flash",),
+    views=1, f32_error_ratio=2.0, watched=2 * FIRST_STEP_BLOCKS,
     watch=lambda n: n.endswith("attn.qkv.weight"), draws=lambda: _one_noise(4, MAE_PATCHES))
 MAE_PATCHES, MAE_MASKED = 196, 147  # 14 x 14 patches, 75% masked: 49 stay, 50 tokens with cls
 
@@ -2795,7 +2846,9 @@ CLIP_BLOCKS = 12  # of each tower
 CLIP_SPEC = SSLSpec(
     "CLIP-ViT-B/32", CLIP_CONFIG,
     256,  # pairs: the config's 4,096 over 16 cards
-    4, (), "visual.", f32_error_ratio=2.0, error_by_distance=True, watched=2 * CLIP_BLOCKS,
+    4, (f"Model.vision_layers={FIRST_STEP_BLOCKS}",
+        f"Model.transformer_layers={FIRST_STEP_BLOCKS}"),
+    "visual.", f32_error_ratio=2.0, error_by_distance=True, watched=2 * FIRST_STEP_BLOCKS,
     watch=lambda n: n.endswith("attn_qkv.weight"))
 # the ModifiedResNet tower: the variant's own vision settings (embed 1024, (3, 4, 6, 3),
 # width 64) with the in1k config's text tower; its first step alone
@@ -2934,12 +2987,11 @@ class _CenterCheck:
         return getattr(self.step_fn, name)
 
 
-DINO_BLOCKS = 12
 DINO_SPEC = SSLSpec(
     "DINO-ViT-S/16", os.path.join(REPO, "configs", "dino", "dino_vit_s16_pretrain_in1k.yaml"),
     64,  # images of 2 x 224 + 8 x 96 crops: the config's 1,024 over 16 cards
-    4, (), "student.backbone.", "teacher.", views=10, f32_error_ratio=2.0, error_by_distance=True,
-    watched=DINO_BLOCKS,
+    4, (f"Model.backbone.depth={FIRST_STEP_BLOCKS}",), "student.backbone.", "teacher.", views=10,
+    f32_error_ratio=2.0, error_by_distance=True, watched=FIRST_STEP_BLOCKS,
     watch=lambda n: n.startswith("student.backbone.blocks.") and n.endswith("attn.qkv.weight"))
 
 
@@ -3019,8 +3071,9 @@ DINOV2_SPEC = SSLSpec(
     # features coincide to 6e-9 at init, under f32's rounding of KoLeo's 2 - 2 f.f'
     # (2.4e-7), which then goes negative and its sqrt NaN on both devices, as the
     # JAX formula does (the bf16 main path spreads them to 8e-6)
-    4, ("Model.backbone.init_values=1.0",), "student.backbone.", "teacher.", views=10,
-    f32_error_ratio=2.0, error_by_distance=True, watched=DINO_BLOCKS,
+    4, ("Model.backbone.init_values=1.0", f"Model.backbone.depth={FIRST_STEP_BLOCKS}"),
+    "student.backbone.", "teacher.", views=10, f32_error_ratio=2.0, error_by_distance=True,
+    watched=FIRST_STEP_BLOCKS,
     watch=lambda n: n.startswith("student.backbone.blocks.") and n.endswith("attn.qkv.weight"),
     draws=lambda: _one_mask_noise(8, DINOV2_PATCHES))  # the 2 x 4 global crops
 DINOV2_PATCHES = 256  # 16 x 16 patches of 14 px at 224
@@ -3190,9 +3243,9 @@ BEIT_SPEC = SSLSpec(
     64,  # images: the recipe's 2,048 over 32 cards
     # no stochastic depth in the first step: the card's and the CPU's generators
     # draw other masks
-    4, ("Model.encoder.drop_path_rate=0.0",), "", "tokenizer.",
-    overrides=("Global.pretrained_model=",), views=1, f32_error_ratio=2.0,
-    error_by_distance=True, watched=MIM_BLOCKS,
+    4, ("Model.encoder.drop_path_rate=0.0", f"Model.encoder.depth={FIRST_STEP_BLOCKS}"), "",
+    "tokenizer.", overrides=("Global.pretrained_model=",), views=1, f32_error_ratio=2.0,
+    error_by_distance=True, watched=FIRST_STEP_BLOCKS,
     watch=lambda n: n.startswith("encoder.blocks.") and n.endswith(_QKV),
     draws=lambda: _TargetIds("BEiT-B/16"))
 CAE_MASKED = 98  # the config's num_masked and num_masking_patches
@@ -3201,16 +3254,19 @@ CAE_SPEC = SSLSpec(
     64,  # images: the JAX package's bench row (bench.py:389-410)
     # the card's f32 distance from f64 read 1.943 times the CPU's, both under
     # 3.4e-7 of the gradient's norm (H100 80GB HBM3 at 700 W): 3 leaves room for
-    # two such roundings and still tells f32 from TF32 (thousands of times)
-    4, (), "", "tokenizer.", overrides=("Global.pretrained_model=",), views=1,
-    f32_error_ratio=3.0, error_by_distance=True, watched=MIM_BLOCKS,
+    # two such roundings and still tells f32 from TF32 (thousands of times; at
+    # 12 blocks)
+    4, (f"Model.depth={FIRST_STEP_BLOCKS}",), "", "tokenizer.",
+    overrides=("Global.pretrained_model=",), views=1, f32_error_ratio=3.0,
+    error_by_distance=True, watched=FIRST_STEP_BLOCKS,
     watch=lambda n: n.startswith("blocks.") and n.endswith(_QKV),
     draws=lambda: _TargetIds("CAE-B/16"))
 CONVMAE_KEPT = 49  # of 196: 147 masked at the config's ratio 0.75
 CONVMAE_SPEC = SSLSpec(
     "ConvMAE-B", os.path.join(REPO, "configs", "convmae", "convmae_base_in1k.yaml"),
     128,  # images: the recipe's 4,096 over 32 cards
-    4, (), "", views=1, f32_error_ratio=2.0, error_by_distance=True, watched=11 + 8,
+    4, (f"Model.depths=[2, 2, {FIRST_STEP_BLOCKS}]", f"Model.decoder_depth={FIRST_STEP_BLOCKS}"),
+    "", views=1, f32_error_ratio=2.0, error_by_distance=True, watched=2 * FIRST_STEP_BLOCKS,
     watch=lambda n: n.endswith(_QKV), draws=lambda: _one_noise(4, MIM_PATCHES))
 
 
@@ -3445,6 +3501,248 @@ def phase_train_convmae() -> dict:
     return out
 
 
+# ------------------------------------------------ XCiT, ConvNeXt, distillation
+
+# the eight kernels' wrappers: none is on the paths below (XCA is two einsums,
+# ConvNeXt convolutions, the distilled DeiT attends with einsum, as in JAX)
+KERNELS = (talking_heads_softmax, talking_heads_softmax_bwd, fused_window_attention,
+           fused_window_attention_bwd, flash_attention, flash_attention_dkv, flash_attention_dq,
+           fused_augment)
+
+
+def _kernel_launches() -> dict:
+    return {w.__name__: w.launches for w in KERNELS}
+
+
+def _reset_kernel_launches() -> None:
+    for w in KERNELS:
+        w.launches = 0
+
+
+def _no_kernel_on_the_path(tag: str) -> None:
+    launches = _kernel_launches()
+    check(not any(launches.values()), f"{tag}: the main path launched a kernel: {launches}")
+    log(f"[train] {tag}: kernel launches over {TRAIN_STEPS} steps {launches} (none is on "
+        "this path, as in JAX)")
+
+
+XCIT_NAME = "xcit_small_12_p16"
+XCIT_SPEC = SSLSpec(
+    "XCiT-S12/16", os.path.join(REPO, "configs", "xcit", "xcit_small_12_p16_224_in1k.yaml"),
+    128,  # images: the recipe's 1,024 over 8 cards
+    # 4 images without stochastic depth (the two devices' generators draw other
+    # masks); the config's Mixup / Cutmix stay: the loader draws them on the host
+    4, ("Model.drop_path_rate=0.0", f"Model.depth={FIRST_STEP_BLOCKS}"), "", views=1,
+    f32_error_ratio=2.0, error_by_distance=True, watched=FIRST_STEP_BLOCKS,
+    watch=lambda n: n.endswith("attn.qkv.weight"))
+CONVNEXT_SPEC = SSLSpec(
+    "ConvNeXt-B", os.path.join(REPO, "configs", "classification", "convnext_base_in1k.yaml"),
+    128,  # images: the recipe's 4,096 over 32 cards
+    # the first step at 6 of its 36 blocks, every width kept (f64 depthwise
+    # convolutions on the CPU took 12 s a step at 36)
+    4, ("Model.drop_path_rate=0.0", "Model.depths=[1, 1, 3, 1]"), "", views=1,
+    f32_error_ratio=2.0, error_by_distance=True, watched=6,
+    watch=lambda n: n.endswith("dwconv.weight"))
+DISTILL_SPEC = SSLSpec(
+    "DeiT-B-distilled<-RegNetY-4GF",
+    os.path.join(REPO, "configs", "distill", "deit_base_distilled_in1k.yaml"),
+    64,  # images: the recipe's 2,048 over 32 cards
+    # the student's blocks cut, the teacher whole
+    4, ("Model.student.drop_path_rate=0.0", f"Model.student.depth={FIRST_STEP_BLOCKS}"), "",
+    no_grad="teacher.", views=1, f32_error_ratio=2.0, error_by_distance=True,
+    watched=FIRST_STEP_BLOCKS,
+    watch=lambda n: n.endswith("attn.qkv.weight"))
+
+
+def _serve_xcit(ckpt: str, tmp: str) -> dict:
+    """The trained XCiT-S12/16 through export and Predictor, in the config's
+    bf16 and in f32, on the same requests: no kernel launched, the bf16 logits
+    at cosine >= 0.999 of the f32 ones."""
+    requests = _requests()
+    logits = {}
+    for prec, overrides in (("bf16", ()), ("f32", ("FP16.enable=False",))):
+        d = os.path.join(tmp, f"serve_{prec}")
+        _export(XCIT_SPEC.config, d, f"Global.checkpoint={ckpt}", *overrides)
+        logits[prec], stages, launches, prof = _serve(d, XCIT_NAME, requests, flash_attention)
+        check(launches == 0, f"XCiT-S12/16 {prec}: serving launched the flash kernel")
+        _report(f"XCiT-S12/16 {prec}", stages, prof)
+    cos = _cosines(logits["bf16"], logits["f32"])
+    log(f"[serve] XCiT-S12/16 bf16 vs f32 on the trained weights: min cosine {cos.min():.7f} "
+        f"over {len(cos)} images, max abs diff {np.abs(logits['bf16'] - logits['f32']).max():.4g}"
+        f" (largest logit {np.abs(logits['f32']).max():.4g})")
+    # bf16 products over 12 blocks against f32: 1e-3 of cosine; a wrong
+    # normalization axis or temperature drops far below it
+    check(cos.min() >= 0.999, f"XCiT-S12/16 bf16 logits disagree with f32: {cos.min()}")
+    return {"serve_bf16_vs_f32_cos_min": float(cos.min())}
+
+
+def phase_train_xcit() -> dict:
+    spec = XCIT_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and len(m.blocks) == 12
+              and m.embed_dim == 384 and m.blocks[0].attn.num_heads == 8 and m.steps == 4
+              and len(m.cls_attn) == 2 and m.blocks[0].init_values == 1.0
+              and m.blocks[0].attn.temperature.shape == (8, 1, 1)
+              and e.criterion is not None and e.grad_clip is not None
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and "TransformOpSampler" in json.dumps(e.config["DataLoader"]["Train"]),
+              "XCiT-S12/16: not the recipe's bf16 / 12 blocks of 384, 8 heads / 4 stem convs / "
+              "2 class-attention layers / CE, global-norm clip, AdamW, Mixup/Cutmix")
+        stats0 = {k: v.clone() for k, v in m.state_dict().items() if ".running_" in k}
+        check(len(stats0) == 24, f"XCiT-S12/16: {len(stats0)} LPI statistics, want 24")
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        _no_kernel_on_the_path(spec.tag)
+        _stats_moved(spec, e, stats0, ["blocks."])
+        log(f"[train] {spec.tag}: the 12 LPI BatchNorms' statistics moved")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no XCiT-S12/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+        with _span(spec.tag, "serving, bf16 and f32"):
+            out.update(_serve_xcit(ckpt, tmp))
+    return out
+
+
+def phase_train_convnext() -> dict:
+    spec = CONVNEXT_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        check(e.policy.compute_dtype == torch.bfloat16 and m.depths == (3, 3, 27, 3)
+              and m.dims == (128, 256, 512, 1024) and m.stage2_block0.dwconv.groups == 512
+              and m.stage3_block2.drop_path.rate == 0.5 and e.full_ema_decay is not None
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW",
+              "ConvNeXt-B: not the recipe's bf16 / depths 3, 3, 27, 3 of 128-1024 / 7 x 7 "
+              "depthwise / drop path 0.5 / EMA / AdamW")
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        _no_kernel_on_the_path(spec.tag)
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no ConvNeXt-B checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _DistillCheck:
+    """Wraps the engine's train step: the step's logged loss against
+    0.5 CE(student, labels) + 0.5 CE(student, argmax teacher), recomputed in
+    f32 from the logits the step's forward produced."""
+
+    def __init__(self, engine: Engine):
+        self.step_fn, self.model = engine.train_step, engine.model
+        self.worst = 0.0
+        self.agree: list = []
+
+    def __call__(self, state, batch):
+        seen: dict = {}
+
+        def keep(name):
+            def hook(_mod, _args, out):
+                seen[name] = out.detach()  # returns None: the output stays as it is
+            return hook
+
+        hooks = [getattr(self.model, n).register_forward_hook(keep(n))
+                 for n in ("student", "teacher")]
+        metrics = self.step_fn(state, batch)
+        for h in hooks:
+            h.remove()
+        s, t = seen["student"].float(), seen["teacher"].float()
+        labels = batch[1].long()
+        want = 0.5 * F.cross_entropy(s, labels) + 0.5 * F.cross_entropy(s, t.argmax(-1))
+        err = abs(float(metrics["loss"]) - want.item()) / want.item()
+        self.worst = max(self.worst, err)
+        self.agree.append((s.argmax(-1) == t.argmax(-1)).float().mean().item())
+        check(err <= 1e-6, f"DeiT-B distilled: logged loss {float(metrics['loss'])} against "
+                           f"{want.item()} recomputed from the step's logits")
+        return metrics
+
+    def __getattr__(self, name):
+        return getattr(self.step_fn, name)
+
+
+def _distill_eval_is_the_student(tag: str, e: Engine) -> float:
+    """One pass of the eval loop: every forward the eval step makes returns
+    the student's logits on the images, bitwise."""
+    outs: dict = {"wrapper": [], "student": []}
+    hooks = [mod.register_forward_hook(lambda _m, _a, out, k=k: outs[k].append(out))
+             for k, mod in (("wrapper", e.model), ("student", e.model.student))]
+    top1 = e.eval_loop.run()
+    for h in hooks:
+        h.remove()
+    n = len(outs["wrapper"])
+    check(n == len(outs["student"]) == 2 and 0.0 <= top1 <= 1.0
+          and all(torch.equal(a, b) for a, b in zip(outs["wrapper"], outs["student"])),
+          f"{tag}: the eval loop's {n} forwards did not return the student's logits")
+    log(f"[eval] {tag}: the eval loop's {n} forwards returned the student's logits bitwise "
+        f"({len(e.eval_dataloader.dataset)} synthetic images, top1 {top1:.5f})")
+    return top1
+
+
+def phase_train_distill() -> dict:
+    spec = DISTILL_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        blocks = m.student.blocks
+        check(e.policy.compute_dtype == torch.bfloat16 and e.criterion is None
+              and type(m).__name__ == "DistillationWrapper" and m.hard_distill and m.alpha == 0.5
+              and type(m.teacher).__name__ == "RegNet" and m.teacher.widths == [128, 192, 512, 1088]
+              and m.teacher.group_widths == [64] * 4
+              and all(getattr(m.teacher, b).se is not None for b in m.teacher.block_names),
+              "DeiT-B distilled: not the recipe's bf16 wrapper, hard distillation, alpha 0.5, "
+              "RegNetY-4GF teacher")
+        check(len(blocks) == 12 and blocks[0].attn.num_heads == 12
+              and all(resolve_attn_impl(b.attn.attn_impl, 198) == "einsum" for b in blocks)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW",
+              "DeiT-B distilled: the student is not 12 blocks of 12 heads on einsum at 198 tokens")
+        teacher0 = {k: v.clone() for k, v in m.state_dict().items() if k.startswith("teacher.")}
+        check(any(".running_" in k for k in teacher0), "DeiT-B distilled: no teacher statistics")
+        dc = _DistillCheck(e)
+        e.train_step = dc
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        e.train_step = dc.step_fn
+        _no_kernel_on_the_path(spec.tag)
+        check(len(dc.agree) == TRAIN_STEPS, f"DeiT-B distilled: {len(dc.agree)} checked steps")
+        after = m.state_dict()
+        check(all(torch.equal(after[k], v) for k, v in teacher0.items()) and not m.teacher.training,
+              "DeiT-B distilled: the teacher moved or left eval mode")
+        _no_optimizer_state_on(spec, e)
+        log(f"[train] {spec.tag}: after {TRAIN_STEPS} steps the teacher's {len(teacher0)} "
+            "parameters and BatchNorm buffers are bitwise unchanged and hold no optimizer "
+            f"state; logged loss = 0.5 ce + 0.5 CE(argmax teacher) to {dc.worst:.3g} at every "
+            f"step; student-teacher top-1 agreement " + ", ".join(f"{a:.3f}" for a in dc.agree))
+        out.update(eval_top1=_distill_eval_is_the_student(spec.tag, e))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS,
+              "no DeiT-B distilled checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)), loss_max_rel_err=dc.worst)
+        del e, m, batch, dc
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
 @contextlib.contextmanager
 def _warnings_of(logger_module, sink: list):
     """Collects the messages `logger_module.warning` is given (and logs them)."""
@@ -3462,12 +3760,14 @@ def _warnings_of(logger_module, sink: list):
 
 
 def phase_first_steps() -> None:
-    """Every SSL phase's first steps, card vs CPU (correctness only, their
-    time is not a measurement): run while the kernels build, whose nvcc
-    processes leave most cores idle after the first seconds."""
+    """Every SSL and classification phase's first steps (14-35), card vs
+    CPU (correctness only, their time is not a measurement): run while the
+    kernels build, whose nvcc processes leave most cores idle after the first
+    seconds."""
     specs = (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC, SIMCLR_SPEC, MOCO_SPEC, SIMSIAM_SPEC, MOCOBYOL_SPEC,
              SWAV_SPEC, DENSECL_SPEC, PIXPRO_SPEC, FASTMOCO_SPEC, CLIP_SPEC, CLIP_R50_SPEC,
-             DINO_SPEC, DINOV2_SPEC, DVAE_SPEC, BEIT_SPEC, CAE_SPEC, CONVMAE_SPEC)
+             DINO_SPEC, DINOV2_SPEC, DVAE_SPEC, BEIT_SPEC, CAE_SPEC, CONVMAE_SPEC, XCIT_SPEC,
+             CONVNEXT_SPEC, DISTILL_SPEC)
     with tempfile.TemporaryDirectory() as tmp:
         for spec in specs:
             _FIRST_STEPS[spec.tag] = _grads_card_vs_cpu(spec, tmp)
@@ -3555,6 +3855,9 @@ def main() -> None:
     _timed("train BEiT-B/16", phase_train_beit)
     _timed("train CAE-B/16", phase_train_cae)
     _timed("train ConvMAE-B", phase_train_convmae)
+    _timed("train XCiT-S12/16", phase_train_xcit)
+    _timed("train ConvNeXt-B", phase_train_convnext)
+    _timed("train DeiT-B distilled <- RegNetY-4GF", phase_train_distill)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

@@ -33,7 +33,8 @@ device, so no worker is forked from a process that holds a CUDA context.
 Not ported yet, and refused when the config asks for them: meshes and
 sharding (`DistributedStrategy` degrees above 1, `recompute`), a
 `torch.distributed` world of more than one process (nothing reduces the
-gradients yet), hooks and the profiler.
+gradients yet), hooks and the profiler. Refused as the JAX engine fails on
+it: `DistillationWrapper` beside a `Loss.Train` block.
 """
 from __future__ import annotations
 
@@ -85,6 +86,17 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
     for key in ("hooks", "profiler_options"):
         if g.get(key):
             raise NotImplementedError(f"Global.{key} is not ported yet")
+    if (config.get("Model", {}) or {}).get("name") == "DistillationWrapper" and (
+            (config.get("Loss", {}) or {}).get("Train")):
+        # ROADMAP.md, Queue 3: neither the wrapper's loss nor the Loss block is clearly meant
+        raise NotImplementedError(
+            "DistillationWrapper with a Loss.Train block: the JAX engine then takes the "
+            "classification path, which hands the model the images alone, and fails at its "
+            "init (the wrapper unpacks the sample batch into two unbatched images, "
+            "passl_tpu/models/distillation.py:36, and the student raises: a DeiT student "
+            "'ValueError: not enough values to unpack (expected 4, got 3)', an XCiT student "
+            "'TypeError: cannot reshape array'). Drop Loss.Train to train on the wrapper's "
+            "own loss")
 
 
 def _device(device: Union[str, torch.device]) -> torch.device:

@@ -4,7 +4,7 @@ Counterpart of `passl_tpu/loss/__init__.py`: `cross_entropy` with hard or
 soft (mixup/cutmix) labels and label smoothing, `CELoss`,
 `SoftTargetCrossEntropy`, `CombinedLoss` (weighted sum, with the total under
 "loss") and `build_loss` over the same YAML surface. Every loss is taken in
-float32 from logits of any dtype.
+float32 from logits of any dtype (float64 from a model run in float64).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.amp import at_least_f32
 from ..utils.registry import Registry
 
 LOSSES = Registry("losses")
@@ -23,8 +24,8 @@ def register_loss(obj=None, name=None):
 
 
 def soft_cross_entropy(logits: torch.Tensor, soft_targets: torch.Tensor) -> torch.Tensor:
-    logp = F.log_softmax(logits.float(), dim=-1)
-    return -(soft_targets.float() * logp).sum(-1).mean()
+    logp = F.log_softmax(at_least_f32(logits), dim=-1)
+    return -(soft_targets.to(logp.dtype) * logp).sum(-1).mean()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: float = 0.0,
@@ -41,7 +42,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: f
             n = logits.shape[-1]
             targets = targets * (1 - label_smoothing) + label_smoothing / n
         return soft_cross_entropy(logits, targets)
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(at_least_f32(logits), dim=-1)
     nll = -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     if label_smoothing > 0:
         smooth = -logp.mean(-1)

@@ -92,7 +92,6 @@ class ClassAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
-        self.dtype = dtype
         # flax's default Dense init (lecun_normal), as the JAX model leaves it
         self.q = Dense(dim, dim, dtype=dtype)
         self.k = Dense(dim, dim, dtype=dtype)
@@ -106,7 +105,9 @@ class ClassAttention(nn.Module):
         q = self.q(x[:, :1]).reshape(n, 1, h, hd).transpose(1, 2)
         k = self.k(x).reshape(n, l, h, hd).transpose(1, 2)
         v = self.v(x).reshape(n, l, h, hd).transpose(1, 2)
-        attn = torch.softmax(_scores(q * hd**-0.5, k, torch.float32), dim=-1).to(self.dtype)
+        # f32 scores (f64 in a model run in f64), cast to v's compute dtype
+        acc = torch.promote_types(q.dtype, torch.float32)
+        attn = torch.softmax(_scores(q * hd**-0.5, k, acc), dim=-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(n, 1, c)
         return self.proj(out)
 

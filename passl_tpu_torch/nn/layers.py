@@ -92,30 +92,32 @@ class Conv1x1(nn.Module):
 
 class Conv(nn.Module):
     """flax `Conv(features, (k, k), strides, padding, feature_group_count,
-    dtype=...)` over NCHW: weight OIHW `[out, in / groups, k, k]` in f32
-    (lecun-normal, flax's default, unless `kernel_init` says otherwise) and a
-    zero bias, computed at `dtype`. `padding` is the pixels added on each
-    side (flax's int padding)."""
+    use_bias, dtype=...)` over NCHW: weight OIHW `[out, in / groups, k, k]` in
+    f32 (lecun-normal, flax's default, unless `kernel_init` says otherwise) and
+    a zero bias (none with `use_bias=False`), computed at `dtype`. `padding` is
+    the pixels added on each side (flax's int padding)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, groups: int = 1, dtype: torch.dtype = torch.float32,
-                 kernel_init: Callable = tinit.lecun_normal_):
+                 kernel_init: Callable = tinit.lecun_normal_, use_bias: bool = True):
         super().__init__()
         self.compute_dtype = dtype
         self.kernel_init = kernel_init
         self.stride, self.padding, self.groups = stride, padding, groups
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups,
                                                kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.kernel_init(self.weight, generator=generator)
-        tinit.zeros_(self.bias)
+        if self.bias is not None:
+            tinit.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
-                        self.padding, groups=self.groups)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding,
+                        groups=self.groups)
 
 
 class ConvTranspose(nn.Module):

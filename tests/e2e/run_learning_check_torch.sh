@@ -8,8 +8,9 @@
 #
 #   tests/e2e/run_learning_check_torch.sh \
 #       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|mocov3|mae \
-#       |clip|dino|dinov2|beit|cae|convmae|random|random_mocov3|random_mae|random_clip \
-#       |random_dino|random_dinov2|random_beit|random_cae|random_convmae \
+#       |clip|dino|dinov2|beit|cae|convmae|distill|random|random_mocov3|random_mae \
+#       |random_clip|random_dino|random_dinov2|random_beit|random_cae|random_convmae \
+#       |random_distill \
 #       [output dir [-o Section.key=value ...]]
 #
 # Overrides after the output dir go to the pretrain and to the probe alike
@@ -33,6 +34,14 @@
 # tests/e2e/run_learning_check.sh:85-121 does; BEiT's probe takes the
 # pretrain's `encoder`, CAE's its top-level `patch_embed`, `blocks` and
 # `norm`, ConvMAE's its three stages under `backbone` with `fc_norm` at init.
+# `distill` trains a tiny RegNetY teacher supervised
+# (tests/e2e/regnet_teacher_structured.yaml; its held-out top-1 must pass the
+# bar too), renames its checkpoint under `teacher` with the port's
+# extract_weights and hands it to tests/e2e/distill_structured.yaml, which
+# distills a tiny XCiT student from it; the student's held-out top-1 (the
+# eval loop's) must pass the bar and beat the untrained student's
+# (`random_distill`, the same eval over the fresh model); it also prints the
+# student's top-1 agreement with the teacher on the held-out set.
 # `random`, `random_mocov3`, `random_mae`, `random_dino`, `random_dinov2`,
 # `random_beit`, `random_cae` and `random_convmae` are the floors: no
 # pretraining, the same probe over the untrained ResNet-18 backbone, MoCo v3,
@@ -80,6 +89,7 @@ case "$METHOD" in
   convmae) CFG=tests/e2e/convmae_structured.yaml; PREFIX=__convmae__
           PROBE_CFG=tests/e2e/probe_convmae_structured.yaml
           PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
+  distill) CFG=tests/e2e/distill_structured.yaml; PREFIX=__distill__ ;;
   random) CFG=; PREFIX= ;;
   random_mocov3) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml ;;
   random_mae) CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
@@ -90,10 +100,11 @@ case "$METHOD" in
   random_beit) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_beit_structured.yaml ;;
   random_cae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_cae_structured.yaml ;;
   random_convmae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_convmae_structured.yaml ;;
+  random_distill) CFG=tests/e2e/distill_structured.yaml; PREFIX=__distill__ ;;
   *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav |" \
        "densecl | pixpro | fastmoco | mocov3 | mae | clip | dino | dinov2 | beit | cae |" \
-       "convmae | random | random_mocov3 | random_mae | random_clip | random_dino |" \
-       "random_dinov2 | random_beit | random_cae | random_convmae)"; exit 2 ;;
+       "convmae | distill | random | random_mocov3 | random_mae | random_clip | random_dino |" \
+       "random_dinov2 | random_beit | random_cae | random_convmae | random_distill)"; exit 2 ;;
 esac
 FLOOR=$([[ "$METHOD" == random* ]] && echo 1 || echo 0)
 rm -rf "$OUT"
@@ -161,7 +172,63 @@ PYEOF
   PRETRAIN_EXTRA+=(-o Global.pretrained_model="$OUT/tokenizer.pt")
 fi
 
-if [ "$PREFIX" = __clip__ ]; then
+last_top1() { grep -oE "top1: [0-9.]+" "$1" | tail -1 | awk '{print $2}'; }
+
+if [ "$PREFIX" = __distill__ ]; then
+  # the untrained student's held-out top-1: the eval loop over the fresh model
+  # from the config's seed (the floor)
+  python -m passl_tpu_torch.tools.eval -c "$CFG" --device cuda \
+    -o Global.output_dir="$OUT/floor" "${EXTRA[@]}" | tee "$OUT/floor.log"
+  floor=$(last_top1 "$OUT/floor.log")
+  if [ "$FLOOR" = 1 ]; then
+    end=$(date +%s)
+    echo "FINAL random-init floor ($METHOD) student top1: $floor (chance = 0.10); wall time" \
+      "$((end - start)) s"
+    exit 0
+  fi
+  python -m passl_tpu_torch.tools.train -c tests/e2e/regnet_teacher_structured.yaml \
+    --device cuda -o Global.output_dir="$OUT/teacher" "${EXTRA[@]}" | tee "$OUT/teacher.log"
+  teacher=$(last_top1 "$OUT/teacher.log")
+  echo "distill: the teacher's held-out top1: $teacher (bar = $BAR)"
+  awk -v t="$teacher" -v b="$BAR" 'BEGIN { exit !(t > b) }'
+  python -m passl_tpu_torch.tools.extract_weights --checkpoint "$OUT/teacher/latest.pt" \
+    --prefix "" --rename teacher --output "$OUT/teacher.pt" --check-config "$CFG"
+  python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
+    -o Global.output_dir="$OUT/student" -o Global.pretrained_model="$OUT/teacher.pt" \
+    "${EXTRA[@]}" | tee "$OUT/student.log"
+  top1=$(last_top1 "$OUT/student.log")
+  python - "$OUT" "$CFG" <<'PYEOF'
+import sys
+
+import numpy as np
+import torch
+
+from passl_tpu_torch.data import build_dataset
+from passl_tpu_torch.models import build_model
+from passl_tpu_torch.utils import cfg_util, io
+
+# the student's top-1 agreement with its teacher on the held-out set
+out, cfg_path = sys.argv[1:]
+cfg = cfg_util.get_config(cfg_path, show=False)
+model = build_model(dict(cfg["Model"]))
+model.load_state_dict(torch.load(io.resolve_checkpoint(f"{out}/student/latest.pt"),
+                                 map_location="cpu", weights_only=True)["model"])
+model = model.cuda().eval()
+ds = build_dataset(cfg["DataLoader"]["Eval"]["dataset"])
+images = torch.from_numpy(np.stack([np.asarray(ds[i][0], np.float32) for i in range(len(ds))]))
+with torch.no_grad():
+    s = model.student(images.cuda()).argmax(-1)
+    t = model.teacher(images.cuda()).argmax(-1)
+print(f"distill: student-teacher top-1 agreement on the {len(ds)} held-out images: "
+      f"{(s == t).float().mean().item():.4f}")
+PYEOF
+  end=$(date +%s)
+  echo "FINAL $METHOD student top1: $top1 (teacher $teacher, untrained student $floor," \
+    "chance = 0.10, bar = $BAR); wall time $((end - start)) s"
+  awk -v t="$top1" -v b="$BAR" -v f="$floor" 'BEGIN { exit !(t > b && t > f) }'
+  echo "LEARNING CHECK PASSED"
+  exit 0
+elif [ "$PREFIX" = __clip__ ]; then
   # CLIP: held-out text->image retrieval of the trained (or, for the floor,
   # the untrained) model, not a probe
   CKPT=none

@@ -448,8 +448,9 @@ def engine_config(path, tmp_path, *overrides):
 
 def jax_engine_run(path, overrides, tmp, during=contextlib.nullcontext):
     """The JAX engine's first STEPS loader batches, its metrics on them and its
-    state before each step and after the last (parameters, AdamW moments) in
-    the port's names and layouts; the steps run inside `during()`."""
+    state before each step and after the last (parameters and BatchNorm
+    statistics, AdamW moments) in the port's names and layouts; the steps run
+    inside `during()`."""
     from passl_tpu.engine import Engine as JaxEngine
     from passl_tpu_torch.models import build_model
 
@@ -463,7 +464,7 @@ def jax_engine_run(path, overrides, tmp, during=contextlib.nullcontext):
             break
 
     def convert(model, state):
-        return (flax_to_torch(state.params, model),
+        return (flax_to_torch(state.params, model, state.model_state.get("batch_stats")),
                 _adamw_moments(state.opt_state, model.state_dict(), transposed_convs(model)))
 
     with during() as record:

@@ -33,6 +33,7 @@ from passl_tpu_torch.optimizer import MomentumLARS, build_optimizer
 from passl_tpu_torch.tools import export
 from passl_tpu_torch.utils import cfg_util
 from passl_tpu_torch.utils.convert import _flatten, _torch_name, flax_to_torch
+from test_torch_moco import _one_openmp_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(REPO, "configs", "byol", "byol_r18_synthetic.yaml")

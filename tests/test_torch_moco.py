@@ -28,6 +28,24 @@ from passl_tpu_torch.utils.convert import _flatten, _torch_name, flax_to_torch
 F32_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_openmp_thread():
+    """The port's tiny CPU steps on one OpenMP thread, put back after: beside
+    the test runner's other workers, OpenMP's barriers over a thread a core
+    cost more than the tiny convolutions they split (a tiny engine's three
+    steps took 40 s beside five workers, 5 s alone). Through threadpoolctl,
+    not `torch.set_num_threads`, which also turns MKL's dynamic threading off
+    for the rest of the worker (ROADMAP.md, Queue 3). The files that import
+    this fixture run under it too."""
+    try:
+        from threadpoolctl import threadpool_limits
+    except ImportError:  # a speed setting only; the card's tests run without it
+        yield
+        return
+    with threadpool_limits(1, user_api="openmp"):
+        yield
+
+
 def _randomize(tree, seed):
     """Every flax leaf redrawn with numpy at a scale where each part shows
     (the queue and its pointer kept)."""

@@ -20,7 +20,8 @@ from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.models import build_model
 from passl_tpu_torch.utils import cfg_util
 from passl_tpu_torch.utils import io as port_io
-from test_torch_moco import _handed_permutations, _port_state, _recorded_permutations
+from test_torch_moco import (_handed_permutations, _one_openmp_thread,  # noqa: F401 (autouse)
+                             _port_state, _recorded_permutations)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(REPO, "configs", "moco", "mocov2_r18_synthetic.yaml")

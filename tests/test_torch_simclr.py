@@ -29,6 +29,7 @@ from passl_tpu_torch.nn.init import init_module
 from passl_tpu_torch.ops import augment as paug
 from passl_tpu_torch.utils import cfg_util
 from passl_tpu_torch.utils.convert import _flatten, _torch_name, flax_to_torch
+from test_torch_moco import _one_openmp_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CFG = os.path.join(REPO, "configs", "simclr", "simclr_r18_synthetic.yaml")

@@ -22,6 +22,7 @@ from passl_tpu_torch.models.necks import SwAVNeck
 from passl_tpu_torch.models.swav import SwAV, sinkhorn_knopp
 from passl_tpu_torch.nn.init import init_module
 from passl_tpu_torch.utils.convert import _flatten, _torch_name, flax_to_torch
+from test_torch_moco import _one_openmp_thread  # noqa: F401  (autouse)
 
 # f32 against XLA's: the same f32 math summed in another order
 F32_TOL = 1e-5
