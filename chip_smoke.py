@@ -6,12 +6,14 @@ Run from the repo root:  python3 chip_smoke.py
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
    one nvcc per source, side by side, in a thread; meanwhile it takes every
    SSL and classification phase's first step on the card and on the CPU in
-   f32 and f64 (phases 14-35 below hold them; no kernel runs there, and the
+   f32 and f64 (phases 14-39 below hold them; no kernel runs there, and the
    nvcc processes leave most cores idle after their first seconds). The
    transformers' first steps (MoCo v3, MAE, CLIP's ViT towers, DINO, DINOv2,
-   BEiT, CAE, ConvMAE's stage 3 and decoder, XCiT, the distilled DeiT) run
-   at 4 of their blocks, every width kept: the CPU's f64 steps set the
-   script's floor beside the build.
+   BEiT, CAE, ConvMAE's stage 3 and decoder, XCiT, the distilled DeiT,
+   T2T-ViT's and LV-ViT's ViT, Mixer) run at 4 of their blocks (CvT-13's
+   stage 2 at 4 of 10), and five ResNet-50 SSL methods' (MoCo v2, SimSiam,
+   MoCo-BYOL, DenseCL, PixPro) at one bottleneck a stage, every width kept:
+   the CPU's f64 steps set the script's floor beside the build.
 3. Holds the talking-heads forward against its plain PyTorch version on the
    card at the shapes CaiT uses, through whichever of its two kernels the C
    entry point picks (warp-row for bf16 / f16 with h <= 8 and k <= 256,
@@ -327,7 +329,35 @@ Run from the repo root:  python3 chip_smoke.py
    Every SSL and classification phase from 14 on logs `[time]` lines: where
    its time goes (the first steps, the main path, the profiled step, the
    resume).
-36. Prints the card line, a JSON line of the eight kernels' results, and
+36. Trains CvT-13 on configs/cvt/cvt_13_224_in1k.yaml as XCiT (the DeiT
+   transforms, Mixup / Cutmix, CE with smoothing 0.1, AdamW with the clip):
+   128 images, bf16, 8 steps, no kernel (its attention is an einsum, as in
+   JAX). Checks: depths 1, 2, 10 of 64, 192, 384 in 1, 3, 6 heads; (queries,
+   keys) of each stage (3,136, 784), (784, 196), (197, 50); resume; the first
+   step card vs CPU at stage 2's 4 of 10 blocks.
+37. Trains T2T-ViT-14 on configs/t2t_vit/t2t_vit_14_in1k.yaml the same way
+   (drop path 0.1): the performer stages over 3,136 and 784 tokens, the ViT
+   over 197; both performers' `w` take a finite, nonzero gradient and move;
+   resume; the first step card vs CPU, and t2t_vit_t_14's (the only run of
+   TokenAttention over 3,136 tokens on the card), the T2T stages whole and
+   the ViT at 4 blocks.
+38. Trains LV-ViT-S with token labeling on
+   configs/lvvit/lvvit_s_token_label_in1k.yaml on the label-free loop, the
+   dataset swapped for SyntheticTokenLabelDataset (1,024 images at 224, a 14
+   x 14 grid, top-5 labels, ImageNet's normalization): 128 images, bf16, 8
+   steps, no kernel. Checks: the {image, label, token_value, token_idx}
+   batch on the card; MixToken boxed at least one step and left at least
+   one unboxed (logged); the logged loss is loss_cls + 0.5 loss_aux to
+   1e-6; the stem BatchNorms' statistics moved; resume; the trained weights
+   served as `lvvit_s` through export and Predictor in bf16 and f32 (cosine
+   >= 0.999), and loaded strictly into `lvvit_s`, whose f32 eval logits
+   equal the token-label model's bitwise; the first step card vs CPU with
+   one MixToken box handed to both devices.
+39. Trains Mixer-B/16 on configs/mlp_mixer/mlp_mixer_b16_224_in1k.yaml the
+   same way as CvT: 128 images, bf16, 8 steps, no kernel; resume; the first
+   step card vs CPU at 4 of its 12 blocks, the head (zeros at init, as in
+   JAX) drawn at std 0.02 there so that the backward reaches every block.
+40. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero; it prints no result line
@@ -359,7 +389,7 @@ from passl_tpu_torch.engine.engine import Engine
 from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
 from passl_tpu_torch.engine import engine as engine_mod
-from passl_tpu_torch.models import beit, dino, discrete_vae, mae, moco
+from passl_tpu_torch.models import beit, build_model, dino, discrete_vae, mae, moco, t2t_vit
 from passl_tpu_torch.nn.layers import Attention
 from passl_tpu_torch.nn.norm import SplitBatchNorm
 from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
@@ -1531,6 +1561,14 @@ def phase_augment() -> dict:
 # took 43.3 s and DINOv2's 29.8 s at 12 blocks on an H100 80GB HBM3's host at
 # 700 W; PERF.md §6)
 FIRST_STEP_BLOCKS = 4
+# five ResNet-50 SSL methods' first steps card vs CPU at one bottleneck a stage
+# (4 of 16), every width kept (the stem, layer4's 3 convs and projection: 5
+# watched): MoCo v2's, SimSiam's, MoCo-BYOL's, DenseCL's and PixPro's, 67 s of
+# the script's floor at 16. BYOL, SimCLR and SwAV stay whole: cut so, their
+# f32 yardsticks (the card against the CPU's own f32-vs-f64) no longer held.
+# No limit or ratio changed (PERF.md §6)
+R50_FIRST_STEP = ("Model.backbone.name=ResNet", "Model.backbone.layers=[1, 1, 1, 1]")
+R50_WATCHED = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1576,8 +1614,18 @@ class SSLSpec:
     # cosine's own f64 rounding (1e-13 over 1e7 entries) and reads noise
     error_by_distance: bool = False
     # the fixed draws the first step hands both devices (a context), where the
-    # model draws (MoCo's and DenseCL's permutation, MAE's noise, DINOv2's masks)
+    # model draws (MoCo's and DenseCL's permutation, MAE's noise, DINOv2's masks,
+    # LV-ViT's MixToken box)
     draws: Optional[Callable[[], contextlib.AbstractContextManager]] = None
+    # run on the first step's freshly built model before its init is kept (Mixer's
+    # head, zeros at init, drawn so that the backward reaches every block)
+    first_step_init: Optional[Callable[[torch.nn.Module], None]] = None
+    # where set, the card's f32 first step runs its convolutions on PyTorch's
+    # native kernels (cuDNN off), and the same step through cuDNN is logged
+    # beside it, not held: LV-ViT's 3 x 3 stem convs at 112 x 112 come out of
+    # cuDNN's f32 algorithms with their gradients 9e-4 from f64, 7.3e-7 through
+    # the native convolutions (tests/perf/lvvit_first_step_convs.py; PERF.md §6)
+    native_convs: bool = False
 
 
 BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
@@ -1589,12 +1637,13 @@ SIMCLR_SPEC = SSLSpec("SimCLR-R50", os.path.join(REPO, "configs", "simclr",
                       4, ("Model.use_device_augment=False",), "backbone.")
 MOCO_SPEC = SSLSpec("MoCoV2-R50", os.path.join(REPO, "configs", "moco", "mocov2_r50_in1k.yaml"),
                     256,  # the config's own batch, in 8 BatchNorm splits
-                    16, (), "encoder_q.backbone.", "encoder_k.",  # 2 images a split
-                    draws=lambda: _one_permutation(16))
+                    16, R50_FIRST_STEP, "encoder_q.backbone.", "encoder_k.",  # 2 images a split
+                    draws=lambda: _one_permutation(16), watched=R50_WATCHED)
 SIMSIAM_SPEC = SSLSpec("SimSiam-R50", os.path.join(REPO, "configs", "simsiam",
                                                    "simsiam_r50_in1k.yaml"),
                        128,  # pairs: the recipe's 512 over 4 cards
-                       4, (), "encoder.backbone.", loss_scale=1.0, f32_error_ratio=1.0)
+                       4, R50_FIRST_STEP, "encoder.backbone.", loss_scale=1.0, f32_error_ratio=1.0,
+                       watched=R50_WATCHED)
 MOCOBYOL_SPEC = SSLSpec("MoCoBYOL-R50", os.path.join(REPO, "configs", "moco_byol",
                                                      "moco_byol_r50_in1k.yaml"),
                         128,  # pairs: the recipe's 1,024 over 8 cards
@@ -1602,7 +1651,8 @@ MOCOBYOL_SPEC = SSLSpec("MoCoBYOL-R50", os.path.join(REPO, "configs", "moco_byol
                         # (the last without scale or bias) over 4 samples is a remainder
                         # that the card's and the CPU's f32 resolve only to a cosine of
                         # 0.99903 between them (0.99973 at 16), 1 - 1e-14 in f64
-                        16, (), "online.backbone.", "target.", f32_error_ratio=1.0)
+                        16, R50_FIRST_STEP, "online.backbone.", "target.", f32_error_ratio=1.0,
+                        watched=R50_WATCHED)
 # the config freezes the prototypes for 313 steps, which 8 steps never leave:
 # 4 puts the boundary inside the run
 SWAV_FREEZE = 4
@@ -1618,7 +1668,9 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
     config's own host transforms stay; the multi-crop wrapper of SwAV and
     DINO keeps its crop stacks around the synthetic images; CLIP's captions
     are `SyntheticTextImageDataset`'s token ids at the config's context
-    length and the model's vocabulary), `batch` images or pairs,
+    length and the model's vocabulary; LV-ViT's token labels are
+    `SyntheticTokenLabelDataset`'s top-5 maps on the config's grid, the images
+    normalized as ImageNet's), `batch` images or pairs,
     TRAIN_STEPS steps; a classifier's Eval block on 256 synthetic images,
     evaluated only where the phase asks."""
     config = cfg_util.get_config(spec.config, overrides=[
@@ -1629,6 +1681,10 @@ def _ssl_config(spec: SSLSpec, out_dir: str, batch: int, *overrides: str,
                  "num_classes": NUM_CLASSES}
     if dl["dataset"]["name"] == "SwAVMultiCropDataset":
         dl["dataset"]["dataset"] = dict(synthetic, transform=None)
+    elif dl["dataset"]["name"] == "LVViTImageNetDataset":  # LV-ViT: synthetic token labels
+        dl["dataset"] = {"name": "SyntheticTokenLabelDataset", "size": 1024, "image_size": spec.img,
+                         "grid_size": dl["dataset"]["grid_size"], "num_classes": NUM_CLASSES,
+                         "topk": LVVIT_TOPK, "transform": NORMALIZE}
     elif dl["dataset"]["name"] == "TextImageDataset":  # CLIP: synthetic captions too
         dl["dataset"] = {"name": "SyntheticTextImageDataset", "size": 1024, "image_size": spec.img,
                          "context_length": dl["dataset"]["context_length"],
@@ -1653,8 +1709,9 @@ def _check_images(engine: Engine, batch) -> None:
     CLIP's of images and tokens) reach the device uint8 where the model
     augments on the device or takes raw crops (BYOL, SimCLR), f32 where the
     host normalizes (the rest)."""
-    dtypes = {v.dtype for v in (batch.values() if isinstance(batch, dict) else batch)
-              if v.dim() == 4}  # the images: not MAE's labels, boxes or tokens
+    dtypes = {v.dtype for k, v in (batch.items() if isinstance(batch, dict) else enumerate(batch))
+              if v.dim() == 4 and not str(k).startswith("token_")}
+    # the images: not MAE's labels, boxes or tokens, nor LV-ViT's token labels
     host_normalized = "NormalizeImage" in json.dumps(engine.config["DataLoader"]["Train"]["dataset"])
     check(dtypes == {torch.float32 if host_normalized else torch.uint8},
           f"views reach the device as {dtypes}")
@@ -1682,6 +1739,18 @@ def _to_f64(model: torch.nn.Module) -> None:
             m.dtype = m.softmax_dtype = torch.float64
 
 
+@contextlib.contextmanager
+def _cudnn_off(off: bool):
+    """cuDNN off inside (PyTorch's native convolutions and BatchNorm) where
+    `off`; every other cuDNN flag, TF32 off included, kept."""
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = prev and not off
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = prev
+
+
 def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
     """{(device, f64): (loss, grads, shapes)} of the first step on the card and
     on the CPU, in f32 and in f64, from one engine: each run starts from the
@@ -1692,20 +1761,26 @@ def _ssl_first_steps(spec: SSLSpec, tmp: str) -> dict:
     e = Engine(_ssl_config(spec, os.path.join(tmp, "grads"), spec.grad_batch,
                            "FP16.enable=False", *spec.grad_overrides, workers=0),
                mode="train", device="cpu")
+    if spec.first_step_init is not None:
+        spec.first_step_init(e.model)
     init = {k: v.clone() for k, v in e.model.state_dict().items()}
     batches = {d: _ssl_first_batch(e, d) for d in ("cuda", "cpu")}
     runs = {}
     for f64 in (False, True):
         if f64:
             _to_f64(e.model)
-        for device in ("cuda", "cpu"):
+        keys = [("cuda", "cuda"), ("cpu", "cpu")]
+        if spec.native_convs and not f64:
+            keys.append(("cudnn", "cuda"))  # logged beside the native one, not held
+        for key, device in keys:
             e.model.to(device).load_state_dict(init)  # f64 parameters take the f32 init exactly
             e.state.generator = torch.Generator(device=device).manual_seed(e.seed + 1)
-            loss = float(e.train_step.forward_backward(e.state, batches[device])["loss"])
+            with _cudnn_off(spec.native_convs and key == "cuda" and not f64):
+                loss = float(e.train_step.forward_backward(e.state, batches[device])["loss"])
             named = [(n, p) for n, p in e.model.named_parameters()  # the EMA tower takes none
                      if not (spec.no_grad and n.startswith(spec.no_grad))]
             grads = torch.cat([p.grad.detach().flatten().double() for _, p in named]).cpu()
-            runs[device, f64] = loss, grads, [(n, p.shape) for n, p in named]
+            runs[key, f64] = loss, grads, [(n, p.shape) for n, p in named]
     e.close()
     del e, batches
     torch.cuda.empty_cache()
@@ -1754,6 +1829,13 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     f64 = _grad_agreement(spec, "f64, card vs CPU", runs["cuda", True], runs["cpu", True])
     ref = _grad_agreement(spec, "CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
     card = _grad_agreement(spec, "card, f32 vs f64", runs["cuda", False], runs["cuda", True])
+    cudnn = {}
+    if ("cudnn", False) in runs:  # the convolutions through cuDNN: logged, not held
+        cudnn = _grad_agreement(spec, "card through cuDNN, f32 vs f64", runs["cudnn", False],
+                                runs["cuda", True])
+        log(f"[train] {spec.tag} first step: through cuDNN the card's f32 distance from f64 is "
+            f"{cudnn['grad_rel_dist'] / max(ref['grad_rel_dist'], 1e-30):.4g} times the CPU's "
+            "(not held: the held step runs the native convolutions)")
     # at ResNet-50's random init the gradient of a weight that feeds a
     # BatchNorm is a small remainder of large sums, which f32 resolves only to
     # the yardstick's cosine: in f32 the card and the CPU must agree to 1e-3,
@@ -1774,7 +1856,8 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
         check(f32["grad_cos"] >= ref["grad_cos"],
               f"{spec.tag} f32 card vs CPU {f32} further apart than f32 from f64 {ref}")
     return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref),
-                                              ("card_f32_vs_f64", card))
+                                              ("card_f32_vs_f64", card),
+                                              ("cudnn_f32_vs_f64", cudnn))
             for k, v in rec.items()}
 
 
@@ -2283,11 +2366,13 @@ def phase_train_swav() -> dict:
 DENSECL_SPEC = SSLSpec("DenseCL-R50", os.path.join(REPO, "configs", "densecl",
                                                    "densecl_r50_in1k.yaml"),
                        256,  # the config's own batch, in 8 BatchNorm splits
-                       16, (), "encoder_q.backbone.", "encoder_k.",  # 2 images a split
-                       f32_error_ratio=2.0, draws=lambda: _one_permutation(16))
+                       16, R50_FIRST_STEP, "encoder_q.backbone.", "encoder_k.",  # 2 images a split
+                       f32_error_ratio=2.0, draws=lambda: _one_permutation(16),
+                       watched=R50_WATCHED)
 PIXPRO_SPEC = SSLSpec("PixPro-R50", os.path.join(REPO, "configs", "pixpro", "pixpro_r50_in1k.yaml"),
                       128,  # pairs: the recipe's 1,024 over 8 cards
-                      4, (), "encoder.backbone.", "encoder_k.", f32_error_ratio=2.0)
+                      4, R50_FIRST_STEP, "encoder.backbone.", "encoder_k.", f32_error_ratio=2.0,
+                      watched=R50_WATCHED)
 FASTMOCO_SPEC = SSLSpec("FastMoCo-R18", os.path.join(REPO, "configs", "moco",
                                                      "fastmoco_r18_synthetic.yaml"),
                         128,  # pairs: the config's own batch, at its own 32 x 32
@@ -3743,6 +3828,325 @@ def phase_train_distill() -> dict:
     return out
 
 
+# ------------------------------------- CvT, T2T-ViT, LV-ViT token labeling, Mixer
+
+
+CVT_SPEC = SSLSpec(
+    "CvT-13", os.path.join(REPO, "configs", "cvt", "cvt_13_224_in1k.yaml"),
+    128,  # images: the recipe's 1,024 over 8 cards
+    # 4 images, stage 2 at 4 of its 10 blocks (every width kept); the config sets
+    # no stochastic depth
+    4, ("Model.depths=[1, 2, 4]",), "", views=1, f32_error_ratio=2.0, error_by_distance=True,
+    watched=7, watch=lambda n: n.endswith("attn.proj_q.weight"))
+T2T_SPEC = SSLSpec(
+    "T2T-ViT-14", os.path.join(REPO, "configs", "t2t_vit", "t2t_vit_14_in1k.yaml"),
+    128,  # images: the recipe's 1,024 over 8 cards
+    # the T2T stages whole, the ViT at 4 of its 14 blocks, no stochastic depth
+    4, ("Model.drop_path_rate=0.0", f"Model.depth={FIRST_STEP_BLOCKS}"), "", views=1,
+    f32_error_ratio=2.0, error_by_distance=True, watched=FIRST_STEP_BLOCKS,
+    watch=lambda n: n.endswith("attn.qkv.weight"))
+# t2t_vit_t_14's first step only: the one run of TokenAttention over 3,136 tokens
+T2T_T_SPEC = dataclasses.replace(
+    T2T_SPEC, tag="T2T-ViT_t-14",
+    config=os.path.join(REPO, "configs", "t2t_vit", "t2t_vit_t_14_in1k.yaml"))
+LVVIT_TOPK = 5  # the public token-label release's K
+LVVIT_SPEC = SSLSpec(
+    "LV-ViT-S token labeling",
+    os.path.join(REPO, "configs", "lvvit", "lvvit_s_token_label_in1k.yaml"),
+    128,  # images: the recipe's 1,024 over 8 cards
+    4, ("Model.drop_path_rate=0.0", f"Model.depth={FIRST_STEP_BLOCKS}"), "", views=1,
+    f32_error_ratio=2.0, error_by_distance=True, watched=FIRST_STEP_BLOCKS,
+    watch=lambda n: n.endswith("attn.qkv.weight"), draws=lambda: _one_mixtoken(),
+    native_convs=True)
+
+
+def _random_head(model: torch.nn.Module) -> None:
+    """Mixer's head from the seed at std 0.02: at its zero init (flax's, as in
+    JAX) a first step's gradient is 0 everywhere but in the head."""
+    with torch.no_grad():
+        model.head.weight.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(0))
+
+
+MIXER_SPEC = SSLSpec(
+    "Mixer-B/16", os.path.join(REPO, "configs", "mlp_mixer", "mlp_mixer_b16_224_in1k.yaml"),
+    128,  # images: the recipe's 1,024 over 8 cards
+    4, (f"Model.depth={FIRST_STEP_BLOCKS}",), "", views=1, f32_error_ratio=2.0,
+    error_by_distance=True, watched=FIRST_STEP_BLOCKS,
+    watch=lambda n: n.endswith("token_mlp.fc1.weight"), first_step_init=_random_head)
+
+
+@contextlib.contextmanager
+def _one_mixtoken():
+    """LV-ViT's MixToken takes one fixed box on every device: lam 0.3 (sides
+    int(sqrt(0.7) 14) = 11) centred at (7, 5), the coin on."""
+    orig = t2t_vit.mixtoken_draws
+
+    def draws(gh, gw, generator, device):
+        return (torch.tensor(0.3, device=device), torch.tensor(7, device=device),
+                torch.tensor(5, device=device), torch.tensor(0.1, device=device))
+
+    t2t_vit.mixtoken_draws = draws
+    try:
+        yield
+    finally:
+        t2t_vit.mixtoken_draws = orig
+
+
+class _ShapeSpy:
+    """Records the shape of the first input of named submodules while it is
+    open: the token counts the main path's first step hands them."""
+
+    def __init__(self, model: torch.nn.Module, inputs=()):
+        self.shapes: dict = {}
+        self.hooks = [model.get_submodule(n).register_forward_hook(self._keep(n)) for n in inputs]
+
+    def _keep(self, name: str):
+        def hook(_mod, args, _out):
+            self.shapes.setdefault(name, tuple(args[0].shape))  # returns None: the output stays
+        return hook
+
+    def close(self) -> dict:
+        for h in self.hooks:
+            h.remove()
+        return self.shapes
+
+
+def _classifier_recipe(tag: str, e: Engine) -> None:
+    """The DeiT recipe the four configs share: bf16, CE with smoothing 0.1,
+    AdamW with the global-norm clip (but LV-ViT's, which has neither the Loss
+    block nor the clip), the DeiT host transforms and Mixup / Cutmix."""
+    dl = json.dumps(e.config["DataLoader"]["Train"])
+    check(e.policy.compute_dtype == torch.bfloat16
+          and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+          and e.config["Loss"]["Train"] == [{"CELoss": {"label_smoothing": 0.1}}]
+          and e.grad_clip is not None and "TimmAutoAugment" in dl and "TransformOpSampler" in dl,
+          f"{tag}: not the recipe's bf16 / CE with smoothing 0.1 / AdamW with the global-norm "
+          "clip / DeiT transforms with Mixup and Cutmix")
+
+
+def phase_train_cvt() -> dict:
+    spec = CVT_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        _classifier_recipe(spec.tag, e)
+        check(m.depths == (1, 2, 10) and m.embed_dims == (64, 192, 384)
+              and m.num_heads == (1, 3, 6) and m.stage0_block0.attn.k_dw.groups == 64,
+              "CvT-13: not depths 1, 2, 10 of 64, 192, 384 in 1, 3, 6 heads, depthwise q/k/v")
+        spy = _ShapeSpy(m, inputs=[f"stage{s}_block0.attn.proj_{p}" for s in range(3)
+                                   for p in ("q", "k")])
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        shapes = spy.close()
+        _no_kernel_on_the_path(spec.tag)
+        tokens = [(shapes[f"stage{s}_block0.attn.proj_q"][1],
+                   shapes[f"stage{s}_block0.attn.proj_k"][1]) for s in range(3)]
+        check(tokens == [(3136, 784), (784, 196), (197, 50)],
+              f"CvT-13: (queries, keys) of each stage {tokens}")
+        log(f"[train] {spec.tag}: (queries, keys) of each stage's attention, stage 2's with the "
+            f"cls token: {tokens}")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no CvT-13 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+def phase_train_t2t() -> dict:
+    spec = T2T_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        out.update({f"t_{k}": v for k, v in _grads_card_vs_cpu(T2T_T_SPEC, tmp).items()})
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        _classifier_recipe(spec.tag, e)
+        check(m.tokens_type == "performer" and len(m.blocks) == 14 and m.embed_dim == 384
+              and m.blocks[0].attn.num_heads == 6 and m.blocks[-1].drop_path1.rate == 0.1
+              and m.t2t_attn1.w.shape == (32, 64) and m.t2t_attn2.w.shape == (32, 64),
+              "T2T-ViT-14: not performer stages with w (32, 64) / 14 blocks of 384 in 6 heads / "
+              "drop path 0.1")
+        w0 = {n: getattr(m, n).w.detach().clone() for n in ("t2t_attn1", "t2t_attn2")}
+        spy = _ShapeSpy(m, inputs=["t2t_attn1", "t2t_attn2", "blocks.0"])
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        shapes = spy.close()
+        _no_kernel_on_the_path(spec.tag)
+        tokens = [shapes[n][1] for n in ("t2t_attn1", "t2t_attn2", "blocks.0")]
+        check(tokens == [3136, 784, 197], f"T2T-ViT-14: tokens of the stages and the ViT {tokens}")
+        grads = {n: getattr(m, n).w.grad for n in w0}
+        check(all(g is not None and bool(torch.isfinite(g).all()) and bool(g.any())
+                  for g in grads.values())
+              and all(not torch.equal(getattr(m, n).w, w) for n, w in w0.items()),
+              "T2T-ViT-14: a performer's w took no finite, nonzero gradient or did not move")
+        log(f"[train] {spec.tag}: tokens {tokens} (the performer stages, the ViT with cls); the "
+            "performers' w: last gradient max |g| " + ", ".join(
+                f"{n} {g.abs().max().item():.3g}" for n, g in grads.items())
+            + "; moved over 8 steps by " + ", ".join(
+                f"{n} {(getattr(m, n).w - w).abs().max().item():.3g}" for n, w in w0.items()))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no T2T-ViT-14 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+class _BoxSpy:
+    """Keeps every MixToken box the model builds while it is open (on the card,
+    no sync)."""
+
+    def __init__(self):
+        self.boxes: list = []
+        self.orig = t2t_vit.mixtoken_box
+
+        def box(*args, **kwargs):
+            b = self.orig(*args, **kwargs)
+            self.boxes.append(b.detach())
+            return b
+
+        t2t_vit.mixtoken_box = box
+
+    def close(self) -> list:
+        t2t_vit.mixtoken_box = self.orig
+        return [int(b.sum()) for b in self.boxes]
+
+
+LVVIT_SERVE = ("Model={'name': 'lvvit_s', 'num_classes': 1000}",
+               "Loss={'Train': [{'CELoss': {'label_smoothing': 0.1}}]}")
+
+
+def _serve_lvvit(ckpt: str, tmp: str) -> dict:
+    """The trained weights served as `lvvit_s` (the token-label config with
+    `Model` and a `Loss` block swapped: the export refuses a label-free
+    config, as JAX's does) through export and Predictor, in bf16 and in f32:
+    no kernel launched, the bf16 logits at cosine >= 0.999 of the f32 ones.
+    Then the checkpoint's state dict loads strictly into `lvvit_s` in f32,
+    whose eval logits equal the token-label model's bitwise."""
+    requests = _requests()
+    logits = {}
+    for prec, overrides in (("bf16", ()), ("f32", ("FP16.enable=False",))):
+        d = os.path.join(tmp, f"serve_{prec}")
+        _export(LVVIT_SPEC.config, d, f"Global.checkpoint={ckpt}", *LVVIT_SERVE, *overrides)
+        logits[prec], stages, launches, prof = _serve(d, "lvvit_s", requests, flash_attention)
+        check(launches == 0, f"LV-ViT-S {prec}: serving launched the flash kernel")
+        _report(f"LV-ViT-S {prec}", stages, prof)
+    cos = _cosines(logits["bf16"], logits["f32"])
+    log(f"[serve] LV-ViT-S bf16 vs f32 on the trained weights: min cosine {cos.min():.7f} "
+        f"over {len(cos)} images, max abs diff {np.abs(logits['bf16'] - logits['f32']).max():.4g}"
+        f" (largest logit {np.abs(logits['f32']).max():.4g})")
+    check(cos.min() >= 0.999, f"LV-ViT-S bf16 logits disagree with f32: {cos.min()}")
+    state = torch.load(ckpt, map_location="cuda", weights_only=True)["model"]
+    plain, trainer = (build_model({"name": name, "num_classes": NUM_CLASSES}).cuda().eval()
+                      for name in ("lvvit_s", "LVViTTokenLabel"))
+    plain.load_state_dict(state, strict=True)
+    trainer.load_state_dict(state, strict=True)
+    x = torch.from_numpy(np.random.RandomState(1).randn(32, IMG, IMG, 3).astype(np.float32)).cuda()
+    with torch.no_grad():
+        a, b = plain(x), trainer(x)
+    diff = (a - b).abs().max().item()
+    check(torch.equal(a, b), f"LV-ViT-S: lvvit_s's f32 eval logits differ from the token-label "
+                             f"model's by {diff}")
+    log(f"[serve] LV-ViT-S: the token-label checkpoint loads strictly into lvvit_s; its f32 eval "
+        f"logits equal the token-label model's bitwise on 32 images (max |diff| {diff})")
+    del plain, trainer, state
+    torch.cuda.empty_cache()
+    return {"serve_bf16_vs_f32_cos_min": float(cos.min()), "lvvit_s_logits_max_abs_diff": diff}
+
+
+def phase_train_lvvit() -> dict:
+    spec = LVVIT_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        ds = e.train_dataloader.dataset
+        check(e.policy.compute_dtype == torch.bfloat16 and e.criterion is None
+              and type(m).__name__ == "LVViTTokenLabel" and len(m.blocks) == 16
+              and m.embed_dim == 384 and m.blocks[0].attn.num_heads == 6 and m.grid == 14
+              and m.blocks[-1].drop_path1.rate == 0.1 and m.mix_prob == 0.5
+              and m.dense_weight == 0.5 and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and type(ds).__name__ == "SyntheticTokenLabelDataset" and ds.grid == 14
+              and ds.topk == LVVIT_TOPK,
+              "LV-ViT-S: not the recipe's bf16 token-label trainer / 16 blocks of 384 in 6 heads "
+              "on a 14 x 14 grid / MixToken 0.5 / dense weight 0.5 / AdamW / top-5 labels")
+        stats0 = {k: v.clone() for k, v in m.state_dict().items() if ".running_" in k}
+        check(len(stats0) == 6, f"LV-ViT-S: {len(stats0)} stem statistics, want 6")
+        spy = _BoxSpy()
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            batch = _main_path(spec.tag, e)
+        finally:
+            cells = spy.close()
+        _no_kernel_on_the_path(spec.tag)
+        check(set(batch) == {"image", "label", "token_value", "token_idx"}
+              and tuple(batch["token_idx"].shape) == (spec.batch, 14, 14, LVVIT_TOPK),
+              f"LV-ViT-S: the batch reached the card as {sorted(batch)}")
+        check(len(cells) == TRAIN_STEPS and any(cells) and not all(cells),
+              f"LV-ViT-S: MixToken's boxes over the {TRAIN_STEPS} steps cover {cells} cells")
+        hist = e.train_loop.history
+        parts = max(abs(h["loss"] - (h["loss_cls"] + 0.5 * h["loss_aux"])) / abs(h["loss"])
+                    for h in hist)
+        check(parts <= 1e-6, f"LV-ViT-S: the logged loss is not loss_cls + 0.5 loss_aux ({parts})")
+        _stats_moved(spec, e, stats0, ["stem_bn"])
+        log(f"[train] {spec.tag}: MixToken boxed steps {[i + 1 for i, c in enumerate(cells) if c]} "
+            f"of {TRAIN_STEPS} (cells of 196: {cells}); loss = loss_cls + 0.5 loss_aux to "
+            f"{parts:.3g}; loss_cls " + ", ".join(f"{h['loss_cls']:.4f}" for h in hist)
+            + "; loss_aux " + ", ".join(f"{h['loss_aux']:.4f}" for h in hist)
+            + "; the 3 stem BatchNorms' statistics moved")
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no LV-ViT-S checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)), loss_parts_rel_err=parts,
+                   boxed_cells=cells)
+        del e, m, batch
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+        with _span(spec.tag, "serving as lvvit_s, bf16 and f32"):
+            out.update(_serve_lvvit(ckpt, tmp))
+    return out
+
+
+def phase_train_mixer() -> dict:
+    spec = MIXER_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        _classifier_recipe(spec.tag, e)
+        blk = m.blocks[0]
+        check(len(m.blocks) == 12 and m.embed_dim == 768 and m.num_patches == 196
+              and tuple(blk.token_mlp.fc1.weight.shape) == (384, 196)
+              and tuple(blk.channel_mlp.fc1.weight.shape) == (3072, 768)
+              and not m.head.weight.any(),
+              "Mixer-B/16: not 12 blocks of 768 / token MLP 196 -> 384 / channel MLP 768 -> 3072 "
+              "/ the head at zero")
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        batch = _main_path(spec.tag, e)
+        _no_kernel_on_the_path(spec.tag)
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, "no Mixer-B/16 checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)))
+        del e, m, batch, blk
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
 @contextlib.contextmanager
 def _warnings_of(logger_module, sink: list):
     """Collects the messages `logger_module.warning` is given (and logs them)."""
@@ -3760,14 +4164,14 @@ def _warnings_of(logger_module, sink: list):
 
 
 def phase_first_steps() -> None:
-    """Every SSL and classification phase's first steps (14-35), card vs
+    """Every SSL and classification phase's first steps (14-39), card vs
     CPU (correctness only, their time is not a measurement): run while the
     kernels build, whose nvcc processes leave most cores idle after the first
     seconds."""
     specs = (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC, SIMCLR_SPEC, MOCO_SPEC, SIMSIAM_SPEC, MOCOBYOL_SPEC,
              SWAV_SPEC, DENSECL_SPEC, PIXPRO_SPEC, FASTMOCO_SPEC, CLIP_SPEC, CLIP_R50_SPEC,
              DINO_SPEC, DINOV2_SPEC, DVAE_SPEC, BEIT_SPEC, CAE_SPEC, CONVMAE_SPEC, XCIT_SPEC,
-             CONVNEXT_SPEC, DISTILL_SPEC)
+             CONVNEXT_SPEC, DISTILL_SPEC, CVT_SPEC, T2T_SPEC, T2T_T_SPEC, LVVIT_SPEC, MIXER_SPEC)
     with tempfile.TemporaryDirectory() as tmp:
         for spec in specs:
             _FIRST_STEPS[spec.tag] = _grads_card_vs_cpu(spec, tmp)
@@ -3858,6 +4262,10 @@ def main() -> None:
     _timed("train XCiT-S12/16", phase_train_xcit)
     _timed("train ConvNeXt-B", phase_train_convnext)
     _timed("train DeiT-B distilled <- RegNetY-4GF", phase_train_distill)
+    _timed("train CvT-13", phase_train_cvt)
+    _timed("train T2T-ViT-14", phase_train_t2t)
+    _timed("train LV-ViT-S token labeling", phase_train_lvvit)
+    _timed("train Mixer-B/16", phase_train_mixer)
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]

@@ -9,8 +9,9 @@ size come from `torch.distributed` when it is initialised, else 0 and 1.
 Batches are numpy; `to_device` makes them tensors on an explicit device.
 The mask transforms (`masking`: BEiT's and CAE's `MaskingGenerator`,
 `RandomMaskingGenerator`, `BEiTTwoViewsWithMask`) register with the
-transforms on import, as in the JAX package. The token-label datasets are
-not copied yet.
+transforms on import, as in the JAX package; the token-label datasets
+(`token_label`: `LVViTImageNetDataset`, `SyntheticTokenLabelDataset`)
+register on their first use by name, as there.
 """
 from __future__ import annotations
 
@@ -38,6 +39,10 @@ SAMPLERS = {
 def build_dataset(cfg: Dict[str, Any]):
     cfg = copy.deepcopy(dict(cfg))
     name = cfg.pop("name")
+    if name not in DATASETS and ("TokenLabel" in name or name.startswith("LVViT")):
+        from .datasets import _register_token_label
+
+        _register_token_label()
     if name == "SwAVMultiCropDataset" and isinstance(cfg.get("dataset"), dict):
         cfg["dataset"] = build_dataset(cfg["dataset"])
     return DATASETS[name](**cfg)

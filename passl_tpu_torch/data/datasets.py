@@ -1,5 +1,4 @@
 # Copied from passl_tpu/data/datasets.py; the port keeps its own copy and imports nothing of passl_tpu.
-# Left out until a slice needs them: the token-label datasets (`_register_token_label`).
 """Datasets.
 
 Capability parity with reference `passl/data/dataset/`:
@@ -197,6 +196,16 @@ DATASETS = {
     "SyntheticDataset": SyntheticDataset,
     "SwAVMultiCropDataset": SwAVMultiCropDataset,
 }
+
+
+def _register_token_label():
+    # late import: token_label imports transforms helpers from here's
+    # sibling; registered lazily to avoid a cycle at module import
+    from .token_label import LVViTImageNetDataset, SyntheticTokenLabelDataset
+
+    DATASETS["LVViTImageNetDataset"] = LVViTImageNetDataset
+    DATASETS["LVViT_ImageNet"] = LVViTImageNetDataset  # reference name
+    DATASETS["SyntheticTokenLabelDataset"] = SyntheticTokenLabelDataset
 
 
 class TextImageDataset(Dataset):

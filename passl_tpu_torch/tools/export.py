@@ -56,6 +56,8 @@ def input_spec(config: dict, model: torch.nn.Module) -> dict:
             logger.warning(f"export: no sample of the dataset ({exc!r}); the model's img_size "
                            "gives the input shape")
         else:
+            if isinstance(sample, dict):  # the token-label datasets: {image, label, ...}
+                sample = sample["image"]
             image = np.asarray(sample[0] if isinstance(sample, tuple) else sample)
             shape = list(image.shape) if image.ndim == 3 else list(image.shape) + [1]
     if shape is None:

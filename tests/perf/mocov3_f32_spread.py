@@ -14,6 +14,7 @@ that the limit is set from a spread and not from one reading.
 Needs a CUDA card; prints one JSON line per seed and a summary line.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -26,6 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, REPO)  # run as a script from anywhere: the repo's modules first
 
 import chip_smoke as cs  # noqa: E402
+from passl_tpu_torch.engine.engine import Engine  # noqa: E402
 
 GROUPS = {"blocks": "base.encoder.blocks.", "head": "base.head.", "predictor": "base.predictor."}
 
@@ -35,6 +37,27 @@ def _error(a: dict, b: dict, prefix: str = "") -> float:
     names = [n for n in a if n.startswith(prefix)]
     return 1.0 - cs._cos(torch.cat([a[n].flatten() for n in names]),
                          torch.cat([b[n].flatten() for n in names]))
+
+
+def first_step(spec, tmp: str, device: str, f64: bool) -> tuple:
+    """(loss, {name: gradient in f64 on the CPU}) of the spec's first step on
+    `device`, in f32 or f64, from the engine's init (the same on every call:
+    `Global.seed`) and epoch 1's first batch, the spec's draws handed in."""
+    e = Engine(cs._ssl_config(spec, os.path.join(tmp, "grads"), spec.grad_batch,
+                              "FP16.enable=False", *spec.grad_overrides, workers=0),
+               mode="train", device="cpu")
+    if spec.first_step_init is not None:
+        spec.first_step_init(e.model)
+    if f64:
+        cs._to_f64(e.model)
+    e.model.to(device)
+    e.state.generator = torch.Generator(device=device).manual_seed(e.seed + 1)
+    with spec.draws() if spec.draws else contextlib.nullcontext():
+        loss = float(e.train_step.forward_backward(e.state, cs._ssl_first_batch(e, device))["loss"])
+    grads = {n: p.grad.detach().double().cpu() for n, p in e.model.named_parameters()
+             if not (spec.no_grad and n.startswith(spec.no_grad))}
+    e.close()
+    return loss, grads
 
 
 def main() -> None:
@@ -51,7 +74,7 @@ def main() -> None:
         spec = dataclasses.replace(cs.MOCOV3_SPEC, grad_batch=args.pairs, grad_overrides=(
             *cs.MOCOV3_SPEC.grad_overrides, f"Global.seed={seed}"))
         with tempfile.TemporaryDirectory() as tmp:
-            (_, f64), (_, cpu), (_, card) = (cs._ssl_first_step(spec, tmp, d, f)
+            (_, f64), (_, cpu), (_, card) = (first_step(spec, tmp, d, f)
                                              for d, f in (("cpu", True), ("cpu", False),
                                                           ("cuda", False)))
         rec = {"seed": seed, "pairs": args.pairs, "card": _error(card, f64),

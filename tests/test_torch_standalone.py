@@ -313,3 +313,89 @@ def test_port_loader_gives_the_captioned_batches_bitwise(name, tmp_path):
             assert g[k].dtype == w[k].dtype and g[k].shape == w[k].shape
             np.testing.assert_array_equal(g[k], w[k])
         assert g["text"].dtype == np.int32 and g["image"].shape == (4, 24, 24, 3)
+
+
+# ------------------------------------------------------ the token-label copy
+
+
+def test_token_label_copy_is_the_jax_file_under_its_header():
+    """`passl_tpu_torch/data/token_label.py` is the JAX package's file under two
+    header lines, and its datasets register by name on first use, as in JAX."""
+    from passl_tpu_torch.data import build_dataset, token_label
+    from passl_tpu_torch.data.datasets import DATASETS
+
+    with open(os.path.join(REPO, "passl_tpu", "data", "token_label.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "passl_tpu_torch", "data", "token_label.py")) as f:
+        lines = f.read().split("\n")
+    assert lines[0].startswith("# Copied from passl_tpu/data/token_label.py")
+    assert "\n".join(lines[2:]) == jax_src
+    ds = build_dataset({"name": "SyntheticTokenLabelDataset", "size": 4})
+    assert isinstance(ds, token_label.SyntheticTokenLabelDataset)
+    assert DATASETS["LVViT_ImageNet"] is DATASETS["LVViTImageNetDataset"] is (
+        token_label.LVViTImageNetDataset)
+
+
+def _token_label_tree(root, n=8, size=32, k=3, grid=8):
+    """A tiny ImageNet list of n images in two classes with .npy label maps
+    [2, k, grid, grid] beside them (made from a seed): the left half of each
+    image black and its right half white, the maps' first index 0 on the left
+    half of the grid and 1 on the right."""
+    from PIL import Image
+
+    rs = np.random.RandomState(0)
+    os.makedirs(root / "img" / "a")
+    os.makedirs(root / "img" / "b")
+    lines = []
+    for i in range(n):
+        rel = os.path.join("a" if i % 2 == 0 else "b", f"{i}.png")
+        img = np.zeros((size, size, 3), np.uint8)
+        img[:, size // 2:] = 255
+        Image.fromarray(img).save(root / "img" / rel)
+        lab = np.zeros((2, k, grid, grid), np.float32)
+        lab[0] = rs.rand(k, grid, grid)
+        lab[0] /= lab[0].sum(0, keepdims=True)
+        lab[1] = rs.randint(2, 10, (k, grid, grid))
+        lab[1, 0] = (np.arange(grid) >= grid // 2)[None, :]
+        os.makedirs(os.path.dirname(root / "maps" / rel), exist_ok=True)
+        np.save(root / "maps" / (os.path.splitext(rel)[0] + ".npy"), lab)
+        lines.append(f"{rel} {i % 2}")
+    (root / "list.txt").write_text("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("name", ["SyntheticTokenLabelDataset", "LVViTImageNetDataset"])
+def test_port_loader_gives_the_token_label_batches_bitwise(name, tmp_path):
+    """The token-label datasets through both loaders (2 workers): the {image,
+    label, token_value, token_idx} batches equal. On the image tree the joint
+    crop and flip move image and label map together: where the whole image is
+    taken and flipped (flip_prob 1, scale 1), the grid's left half carries the
+    white half's index 1."""
+    if name == "SyntheticTokenLabelDataset":
+        cases = [({"size": 16, "image_size": 32, "grid_size": 4, "num_classes": 10, "topk": 3},
+                  (32, 4, 3))]
+    else:
+        _token_label_tree(tmp_path)
+        tree = {"image_root": str(tmp_path / "img"), "cls_label_path": str(tmp_path / "list.txt"),
+                "label_root": str(tmp_path / "maps"), "grid_size": 4, "image_size": 16}
+        cases = [(dict(tree, scale=[0.3, 1.0]), (16, 4, 3)),
+                 (dict(tree, scale=[1.0, 1.0], flip_prob=1.0), (16, 4, 3))]
+    for dataset, (size, grid, k) in cases:
+        dl = {"dataset": {"name": name, **dataset},
+              "sampler": {"batch_size": 4, "shuffle": True, "drop_last": True},
+              "loader": {"num_workers": 2, "prefetch": 2}}
+        want = _first_batches(jax_build_dataloader, dl, 42)
+        got = _first_batches(build_dataloader, dl, 42)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert set(g) == set(w) == {"image", "label", "token_value", "token_idx"}
+            for key in g:
+                assert g[key].dtype == w[key].dtype and g[key].shape == w[key].shape, key
+                np.testing.assert_array_equal(g[key], w[key])
+            assert g["image"].shape == (4, size, size, 3)
+            assert g["token_value"].shape == g["token_idx"].shape == (4, grid, grid, k)
+            assert g["token_idx"].dtype == np.int32 and g["label"].dtype == np.int32
+            if dataset.get("flip_prob") == 1.0:
+                white = g["image"][:, :, : size // 2].mean() > g["image"][:, :, size // 2:].mean()
+                assert white  # the image flipped: its white half on the left
+                np.testing.assert_array_equal(g["token_idx"][..., 0],
+                                              np.broadcast_to([1, 1, 0, 0], (4, grid, grid)))
