@@ -4,16 +4,16 @@ Run from the repo root:  python3 chip_smoke.py
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from passl_tpu_torch/csrc/ with nvcc (sm_90a),
-   one nvcc per source, side by side, in a thread; meanwhile it takes every
-   SSL and classification phase's first step on the card and on the CPU in
-   f32 and f64 (phases 14-39 below hold them; no kernel runs there, and the
-   nvcc processes leave most cores idle after their first seconds). The
+   one nvcc per source, side by side, in a thread; meanwhile it takes the
+   first steps on the card and on the CPU in f32 and f64 of MoCo v3, MAE
+   and BYOL (phases 25, 26 and 14 hold them; no kernel runs there), then
+   kernel-free phases of the pool (see "The schedule" below) until the
+   build ends. The
    transformers' first steps (MoCo v3, MAE, CLIP's ViT towers, DINO, DINOv2,
    BEiT, CAE, ConvMAE's stage 3 and decoder, XCiT, the distilled DeiT,
-   T2T-ViT's and LV-ViT's ViT, Mixer) run at 4 of their blocks (CvT-13's
+   T2T-ViT's and LV-ViT's ViT, Mixer, V-MoE) run at 4 of their blocks (CvT-13's
    stage 2 at 4 of 10), and five ResNet-50 SSL methods' (MoCo v2, SimSiam,
-   MoCo-BYOL, DenseCL, PixPro) at one bottleneck a stage, every width kept:
-   the CPU's f64 steps set the script's floor beside the build.
+   MoCo-BYOL, DenseCL, PixPro) at one bottleneck a stage, every width kept.
 3. Holds the talking-heads forward against its plain PyTorch version on the
    card at the shapes CaiT uses, through whichever of its two kernels the C
    entry point picks (warp-row for bf16 / f16 with h <= 8 and k <= 256,
@@ -357,8 +357,46 @@ Run from the repo root:  python3 chip_smoke.py
    same way as CvT: 128 images, bf16, 8 steps, no kernel; resume; the first
    step card vs CPU at 4 of its 12 blocks, the head (zeros at init, as in
    JAX) drawn at std 0.02 there so that the backward reaches every block.
-40. Prints the card line, a JSON line of the eight kernels' results, and
+40. Trains V-MoE-B/16-E8 on configs/classification/vmoe_base_patch16_224_e8_in1k.yaml
+   at sharding degree 1 (one card holds the experts; the recipe's degree 8
+   is refused) as XCiT: 128 images, bf16, drop path 0.1, 8 steps, einsum
+   attention as in JAX, no kernel. Checks: 12 blocks of 768, blocks 1, 3,
+   ..., 11 of 8 experts with w1 [8, 768, 3072] and an f32 router; every
+   routing call of the path takes f32 gates over groups of one image (197
+   tokens) at capacity 64; the logged loss is CELoss + moe_aux_loss to 1e-6
+   and moe_balance finite in [1, 8]; the expert biases without weight
+   decay; the trained weights served through export and Predictor give the
+   model's own eval logits bitwise; resume; the first step card vs CPU at 4
+   images and 4 of the 12 blocks in f32 and f64: the f64 steps route every
+   token alike, the f32 tokens that route apart are counted (where any
+   does, the f32 gradients are logged, not held), the card's f32 distance
+   from f64 at most twice the CPU's.
+41. Trains MoCo v3 over V-MoE-B/16-E8 on configs/mocov3/mocov3_vmoe_base_in1k.yaml
+   at sharding degree 1 with Model.encoder.attn_impl=flash: 128 pairs,
+   AdamW, bf16, 8 steps. Checks: both towers' layout as 40's; every block,
+   dense and MoE, on the flash kernels: 48 forward, 24 dK/dV and 24 dQ
+   launches a step; the EMA rule after every step on every momentum
+   parameter, its routers and experts included; no optimizer state on the
+   momentum tower; 24 routing calls a step as 40's; moe_balance logged and
+   in [1, 8]; the checkpoint written (40 and 25 hold the resume).
+42. Prints the card line, a JSON line of the eight kernels' results, and
    last the contract line {"ok": true, "device": {...}}.
+
+The schedule. Most phases keep the card idle and one host core busy, so the
+script runs in two processes. At its start it launches one worker
+(`chip_smoke.py --pool DIR`, killed with the script), which builds nothing
+and takes the kernel-free phases (15-22, 27-40 and the dVAE's first step,
+each with its first steps card vs CPU) from one pool in the pool's order,
+longest first. The main process builds the kernels and takes its three
+first steps (2), then pool phases until the build ends, then the phases
+that launch a kernel (7-12, 14, 23-26), then what is left of the pool. A
+phase goes to whichever process claims it first (an exclusive file in DIR).
+Then the main process waits for the worker and runs 41 (its peak and the
+pool's largest would not share the card) and last the timed kernel phases
+(3-6b, 13) alone on the card and the host. Where both processes ran at
+once, a phase's step and loop times read high, and so can its device busy
+time: the other process's kernels take time slices of the card inside its
+kernels' spans.
 
 Any failure raises and the script exits non-zero; it prints no result line
 then. It imports nothing of JAX.
@@ -366,12 +404,15 @@ then. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
 import json
 import os
+import signal
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -390,6 +431,8 @@ from passl_tpu_torch.engine.inference import Predictor
 from passl_tpu_torch.ops import _build
 from passl_tpu_torch.engine import engine as engine_mod
 from passl_tpu_torch.models import beit, build_model, dino, discrete_vae, mae, moco, t2t_vit
+from passl_tpu_torch.models.vit_moe import BlockMoE
+from passl_tpu_torch.nn import moe
 from passl_tpu_torch.nn.layers import Attention
 from passl_tpu_torch.nn.norm import SplitBatchNorm
 from passl_tpu_torch.ops.augment import (byol_device_augment, simclr_device_augment_core,
@@ -539,10 +582,14 @@ def phase_device() -> str:
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    # every f32 comparison below is in full f32: cuDNN convolutions default to TF32
+    _full_f32()
+    return card
+
+
+def _full_f32() -> None:
+    """Every f32 comparison below is in full f32: cuDNN convolutions default to TF32."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return card
 
 
 def phase_build() -> None:
@@ -1626,6 +1673,10 @@ class SSLSpec:
     # cuDNN's f32 algorithms with their gradients 9e-4 from f64, 7.3e-7 through
     # the native convolutions (tests/perf/lvvit_first_step_convs.py; PERF.md §6)
     native_convs: bool = False
+    # where set (V-MoE), the first steps run under `_RoutingSpy`: the card's and the
+    # CPU's f64 steps must route every token alike; the f32 tokens that route
+    # apart are counted, and the f32 checks are held only where none does
+    routing: bool = False
 
 
 BYOL_SPEC = SSLSpec("BYOL-R50", os.path.join(REPO, "configs", "byol", "byol_r50_in1k.yaml"),
@@ -1822,9 +1873,11 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     `phase_first_steps` took already is handed over instead."""
     if spec.tag in _FIRST_STEPS:
         return _FIRST_STEPS.pop(spec.tag)
+    spy = _RoutingSpy(masks=True) if spec.routing else contextlib.nullcontext()
     with _span(spec.tag, "first steps, card vs CPU, f32 and f64"), (
-            spec.draws() if spec.draws else contextlib.nullcontext()):
+            spec.draws() if spec.draws else contextlib.nullcontext()), spy:
         runs = _ssl_first_steps(spec, tmp)
+    flips = _routing_agreement(spec, spy.calls) if spec.routing else 0
     f32 = _grad_agreement(spec, "f32, card vs CPU", runs["cuda", False], runs["cpu", False])
     f64 = _grad_agreement(spec, "f64, card vs CPU", runs["cuda", True], runs["cpu", True])
     ref = _grad_agreement(spec, "CPU, f32 vs f64", runs["cpu", False], runs["cpu", True])
@@ -1840,10 +1893,14 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     # BatchNorm is a small remainder of large sums, which f32 resolves only to
     # the yardstick's cosine: in f32 the card and the CPU must agree to 1e-3,
     # and f64 resolves it, and there they must agree to 1e-6
-    for rec, tol in ((f32, 1e-3), (f64, 1e-6)):
+    held = ((f32, 1e-3), (f64, 1e-6)) if not flips else ((f64, 1e-6),)
+    for rec, tol in held:
         check(rec["loss_rel"] <= 1e-4 and min(rec["grad_cos"], rec["grad_cos_min_conv"]) >= 1 - tol,
               f"{spec.tag} card vs CPU first step: {rec}")
-    if spec.f32_error_ratio:
+    if flips:  # another expert takes those tokens: the f32 steps are other functions
+        log(f"[train] {spec.tag} first step: {flips} tokens route apart in f32, card vs CPU: the "
+            "f32 gradients are logged, not held; the f64 steps route alike and are held")
+    elif spec.f32_error_ratio:
         err_card, err_cpu = ((r["grad_rel_dist"] if spec.error_by_distance else 1 - r["grad_cos"])
                              for r in (card, ref))
         log(f"[train] {spec.tag} first step: the card's f32 error from f64 "
@@ -1858,7 +1915,52 @@ def _grads_card_vs_cpu(spec: SSLSpec, tmp: str) -> dict:
     return {f"{prec}_{k}": v for prec, rec in (("f32", f32), ("f64", f64), ("f32_vs_f64", ref),
                                               ("card_f32_vs_f64", card),
                                               ("cudnn_f32_vs_f64", cudnn))
-            for k, v in rec.items()}
+            for k, v in rec.items()} | ({"f32_routing_flips": flips} if spec.routing else {})
+
+
+class _RoutingSpy:
+    """While open, wraps `nn.moe.topk_dispatch` (looked up at call time by
+    `MoEMlp`): each call's gates' dtype and shape and its capacity, and with
+    `masks` its dispatch mask on the host."""
+
+    def __init__(self, masks: bool = False):
+        self.masks, self.calls = masks, []
+
+    def __enter__(self) -> "_RoutingSpy":
+        self.orig = moe.topk_dispatch
+
+        def spy(gates, k, capacity):
+            out = self.orig(gates, k, capacity)
+            self.calls.append({"dtype": gates.dtype, "shape": tuple(gates.shape),
+                               "capacity": capacity,
+                               "dispatch": out[1].cpu() if self.masks else None})
+            return out
+
+        moe.topk_dispatch = spy
+        return self
+
+    def __exit__(self, *exc) -> None:
+        moe.topk_dispatch = self.orig
+
+
+def _routing_agreement(spec: SSLSpec, calls: list) -> int:
+    """The first steps' routing, in `_ssl_first_steps`' order (card f32, CPU
+    f32, card f64, CPU f64): the f64 steps' dispatch masks must be equal; the
+    count of tokens whose f32 dispatch rows differ is logged and returned."""
+    check(len(calls) % 4 == 0 and calls, f"{spec.tag}: {len(calls)} routing calls in 4 runs")
+    n = len(calls) // 4
+    card32, cpu32, card64, cpu64 = (calls[i * n:(i + 1) * n] for i in range(4))
+    same64 = all(torch.equal(a["dispatch"], b["dispatch"]) for a, b in zip(card64, cpu64))
+    tokens = sum(c["dispatch"].shape[0] * c["dispatch"].shape[1] for c in card32)
+    flips = sum(int((a["dispatch"] != b["dispatch"]).flatten(2).any(-1).sum())
+                for a, b in zip(card32, cpu32))
+    dtypes = {c["dtype"] for c in card32 + cpu32}
+    log(f"[train] {spec.tag} first step routing, {n} MoE layers: f64 dispatch masks card vs CPU "
+        f"{'equal' if same64 else 'DIFFER'}; f32: {flips} of {tokens} tokens route apart; "
+        f"gates {sorted(str(d) for d in dtypes)}")
+    check(same64, f"{spec.tag}: the card's and the CPU's f64 steps route tokens apart")
+    check(dtypes == {torch.float32}, f"{spec.tag}: the f32 steps' gates are {dtypes}")
+    return flips
 
 
 class _EmaCheck:
@@ -4147,6 +4249,184 @@ def phase_train_mixer() -> dict:
     return out
 
 
+# ------------------------------------------------ V-MoE and MoCo v3 over it
+
+# expert parallelism is not ported (the recipes' sharding degrees 8 and 4 are
+# refused): one H100 holds V-MoE-B/16-E8 whole, ~285 M parameters
+ONE_DEVICE = ("DistributedStrategy.sharding.degree=1",)
+VMOE_NAME = "VMoE_base_patch16_224_e8"
+VMOE_SPEC = SSLSpec(
+    "V-MoE-B/16-E8", os.path.join(REPO, "configs", "classification",
+                                  "vmoe_base_patch16_224_e8_in1k.yaml"),
+    128,  # images: the other ViT-B phases' batch (the recipe's 4,096 over 8 devices is 512)
+    # 4 images, 4 of the 12 blocks (2 of them MoE, every width kept), no
+    # stochastic depth, the scores' softmax in f32 (the config's bf16 softmax
+    # would put bf16 roundings into the f32 yardstick)
+    4, ("Model.drop_path_rate=0.0", f"Model.depth={FIRST_STEP_BLOCKS}",
+        "Model.softmax_dtype=float32"), "", overrides=ONE_DEVICE, views=1, f32_error_ratio=2.0,
+    error_by_distance=True, watched=FIRST_STEP_BLOCKS // 2,
+    watch=lambda n: n.endswith("moe.w1"), routing=True)
+VMOE_BLOCKS, VMOE_EXPERTS, VMOE_CAPACITY = 12, 8, 64  # capacity: 197 tokens a group, k 2, 1.25
+MOCOV3_MOE_SPEC = SSLSpec(
+    "MoCoV3-V-MoE-B/16", os.path.join(REPO, "configs", "mocov3", "mocov3_vmoe_base_in1k.yaml"),
+    128,  # pairs, as MoCo v3's phase (the recipe's 4,096 over its 4 devices is 1,024)
+    # no first step card vs CPU: V-MoE's holds the routed experts, MoCo v3's the towers
+    0, (), "base.encoder.", "momentum.", overrides=ONE_DEVICE + ("Model.encoder.attn_impl=flash",))
+
+
+def _moe_layout(tag: str, encoder: torch.nn.Module) -> list:
+    """V-MoE-B/16-E8's layout: 12 blocks of 768, blocks 1, 3, ..., 11 of 8
+    experts 768 -> 3072 -> 768 (k 2, capacity factor 1.25), the router f32."""
+    moe_blocks = [i for i, b in enumerate(encoder.blocks) if isinstance(b, BlockMoE)]
+    m = encoder.blocks[1].moe
+    check(len(encoder.blocks) == VMOE_BLOCKS and encoder.embed_dim == 768
+          and moe_blocks == list(range(1, VMOE_BLOCKS, 2))
+          and all(encoder.blocks[i].moe.num_experts == VMOE_EXPERTS for i in moe_blocks)
+          and tuple(m.w1.shape) == (8, 768, 3072) and tuple(m.w2.shape) == (8, 3072, 768)
+          and tuple(m.router.shape) == (768, 8) and m.router.dtype == torch.float32
+          and m.k == 2 and m.capacity_factor == 1.25,
+          f"{tag}: not 12 blocks of 768 with MoE blocks {moe_blocks} of 8 experts 768 -> 3072, "
+          "k 2, capacity factor 1.25, an f32 router")
+    return moe_blocks
+
+
+def _routing_of_the_path(tag: str, spy: "_RoutingSpy", calls: int, groups: int) -> None:
+    """Every routing call of the main path: f32 gates over groups of one image
+    (197 tokens), capacity 64."""
+    shapes = {c["shape"] for c in spy.calls}
+    check(len(spy.calls) == calls and shapes == {(groups, 197, VMOE_EXPERTS)}
+          and {c["dtype"] for c in spy.calls} == {torch.float32}
+          and {c["capacity"] for c in spy.calls} == {VMOE_CAPACITY},
+          f"{tag}: {len(spy.calls)} routing calls (want {calls}) of gates {shapes} "
+          f"{ {c['dtype'] for c in spy.calls} }, capacities {({c['capacity'] for c in spy.calls})}")
+    log(f"[train] {tag}: {calls} routing calls over {TRAIN_STEPS} steps, gates f32 "
+        f"[{groups}, 197, 8] (one image a group), capacity {VMOE_CAPACITY} in every expert")
+
+
+def _serve_vmoe(spec: SSLSpec, e: Engine, ckpt: str, tmp: str) -> dict:
+    """The trained weights through export and Predictor (bf16, as the recipe):
+    no kernel launched, and the served logits equal the trained model's own
+    eval logits on the same preprocessed images."""
+    d = os.path.join(tmp, "serve")
+    _export(spec.config, d, f"Global.checkpoint={ckpt}", *spec.overrides)
+    requests = _requests()
+    served, stages, launches, prof = _serve(d, VMOE_NAME, requests, flash_attention)
+    check(launches == 0, f"{spec.tag}: serving launched the flash kernel")
+    _report(spec.tag, stages, prof)
+    pred = Predictor(d, name=VMOE_NAME, transform=NORMALIZE, device="cuda")
+    images = np.concatenate([pred.preprocess(r) for r in requests])
+    del pred
+    with torch.no_grad():
+        own = torch.cat([e.model.eval()(torch.from_numpy(images[i:i + BATCH]).cuda()).float()
+                         for i in range(0, len(images), BATCH)]).cpu().numpy()
+    diff = float(np.abs(served - own).max())
+    check(np.array_equal(served, own),
+          f"{spec.tag}: the served logits differ from the model's eval logits by {diff}")
+    log(f"[serve] {spec.tag}: the trained weights served through export and Predictor (bf16): "
+        f"logits bitwise the model's own eval logits on {len(images)} images (max |diff| {diff})")
+    torch.cuda.empty_cache()
+    return {"served_vs_eval_max_abs_diff": diff}
+
+
+def phase_train_vmoe() -> dict:
+    spec = VMOE_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_grads_card_vs_cpu(spec, tmp))
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        moe_blocks = _moe_layout(spec.tag, m)
+        check(e.policy.compute_dtype == torch.bfloat16 and e.criterion is not None
+              and e.config["Loss"]["Train"] == [{"CELoss": {"label_smoothing": 0.1}}]
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and e.grad_clip is not None and m.blocks[-1].drop_path1.rate == 0.1
+              and all(b.attn.attn_impl == "einsum" for b in m.blocks)
+              and e.optimizer.group_of("blocks.1.moe.b1").weight_decay == 0.0
+              and e.optimizer.group_of("blocks.1.moe.w1").weight_decay == 0.1,
+              f"{spec.tag}: not the recipe's bf16 / CE with smoothing 0.1 / AdamW with the "
+              "global-norm clip and the expert biases without decay / drop path 0.1 / einsum "
+              "attention")
+        spy = _RoutingSpy()
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with spy:
+            batch = _main_path(spec.tag, e)
+        _no_kernel_on_the_path(spec.tag)
+        _routing_of_the_path(spec.tag, spy, TRAIN_STEPS * len(moe_blocks), spec.batch)
+        hist = e.train_loop.history
+        parts = max(abs(h["loss"] - h["CELoss"] - h["moe_aux_loss"]) / abs(h["loss"]) for h in hist)
+        balances = [h["moe_balance"] for h in hist]
+        check(parts <= 1e-6, f"{spec.tag}: the logged loss is not CELoss + moe_aux_loss ({parts})")
+        check(all(np.isfinite(balances)) and all(1.0 <= b <= VMOE_EXPERTS for b in balances),
+              f"{spec.tag}: moe_balance {balances}")
+        log(f"[train] {spec.tag}: loss = CELoss + moe_aux_loss to {parts:.3g}; moe_aux_loss "
+            + ", ".join(f"{h['moe_aux_loss']:.5f}" for h in hist) + "; moe_balance "
+            + ", ".join(f"{b:.4f}" for b in balances))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, f"no {spec.tag} checkpoint")
+        with _span(spec.tag, "serving"):
+            out.update(_serve_vmoe(spec, e, ckpt, tmp))
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 20.0)), loss_parts_rel_err=parts,
+                   moe_balance=balances)
+        del e, m, batch, spy
+        torch.cuda.empty_cache()
+        _ssl_resume(spec, tmp, ckpt)
+    return out
+
+
+def phase_train_mocov3_moe() -> dict:
+    spec = MOCOV3_MOE_SPEC
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        e = Engine(_ssl_config(spec, os.path.join(tmp, "bf16"), spec.batch), mode="train",
+                   device="cuda")
+        m = e.model
+        moe_blocks = _moe_layout(spec.tag, m.base.encoder)
+        _moe_layout(spec.tag, m.momentum.encoder)
+        check(e.policy.compute_dtype == torch.bfloat16 and m.base.encoder.stop_grad_conv1
+              and all(b.attn.attn_impl == "flash" for b in m.base.encoder.blocks)
+              and tuple(m.base.head.fc0.weight.shape) == (4096, 768)
+              and type(e.optimizer.torch_optimizer).__name__ == "AdamW"
+              and e.optimizer.group_of("base.encoder.blocks.1.moe.b2").weight_decay == 0.0,
+              f"{spec.tag}: not the recipe's bf16 / stop_grad_conv1 / flash attention in every "
+              "block, dense and MoE / heads 4096 -> 256 / AdamW with the expert biases undecayed")
+        ema = _EmaCheck(spec.tag, e)
+        routers = [m.momentum.encoder.blocks[i].moe.router for i in moe_blocks]
+        check(all(any(d is r for d in ema.dst) for r in routers),
+              f"{spec.tag}: the momentum routers are not EMA targets")
+        e.train_step = ema
+        spy = _RoutingSpy()
+        want = (4 * VMOE_BLOCKS, 2 * VMOE_BLOCKS, 2 * VMOE_BLOCKS)
+        _reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with spy:
+            batch = _main_path(spec.tag, e)
+        e.train_step = ema.step_fn
+        _flash_step_launches(spec.tag, TRAIN_STEPS, want)
+        others = {k: v for k, v in _kernel_launches().items() if not k.startswith("flash")}
+        check(not any(others.values()), f"{spec.tag}: other kernels launched {others}")
+        # 4 encoder passes a step (2 base, 2 momentum), each through 6 MoE blocks
+        _routing_of_the_path(spec.tag, spy, TRAIN_STEPS * 4 * len(moe_blocks), spec.batch)
+        _no_optimizer_state_on(spec, e)
+        balances = [h["moe_balance"] for h in e.train_loop.history]
+        check(all(np.isfinite(balances)) and all(1.0 <= b <= VMOE_EXPERTS for b in balances),
+              f"{spec.tag}: moe_balance {balances}")
+        log(f"[train] {spec.tag}: the EMA rule held at every step on all {len(ema.dst)} momentum "
+            f"parameters, its {len(routers)} routers and their experts included (max rel err "
+            f"{ema.worst:.3g}); the momentum tower has no optimizer state; moe_balance "
+            + ", ".join(f"{b:.4f}" for b in balances))
+        ckpt = os.path.join(tmp, "bf16", "latest.pt")
+        check(os.path.exists(ckpt) and e.state.step == TRAIN_STEPS, f"no {spec.tag} checkpoint")
+        out.update(_ssl_report(spec, e, batch, loss_range=(0.0, 100.0)),
+                   ema_max_rel_err=ema.worst, launches_per_step=want, moe_balance=balances)
+        # no resume here (19.4 s of the script on an H100 80GB HBM3 host at 700 W):
+        # V-MoE's phase resumes the routed experts, MoCo v3's the momentum tower
+        del e, m, batch, ema, spy, routers
+        torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def _warnings_of(logger_module, sink: list):
     """Collects the messages `logger_module.warning` is given (and logs them)."""
@@ -4164,39 +4444,135 @@ def _warnings_of(logger_module, sink: list):
 
 
 def phase_first_steps() -> None:
-    """Every SSL and classification phase's first steps (14-39), card vs
-    CPU (correctness only, their time is not a measurement): run while the
-    kernels build, whose nvcc processes leave most cores idle after the first
-    seconds."""
-    specs = (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC, SIMCLR_SPEC, MOCO_SPEC, SIMSIAM_SPEC, MOCOBYOL_SPEC,
-             SWAV_SPEC, DENSECL_SPEC, PIXPRO_SPEC, FASTMOCO_SPEC, CLIP_SPEC, CLIP_R50_SPEC,
-             DINO_SPEC, DINOV2_SPEC, DVAE_SPEC, BEIT_SPEC, CAE_SPEC, CONVMAE_SPEC, XCIT_SPEC,
-             CONVNEXT_SPEC, DISTILL_SPEC, CVT_SPEC, T2T_SPEC, T2T_T_SPEC, LVVIT_SPEC, MIXER_SPEC)
+    """The first steps, card vs CPU, of the kernel phases that hold them (MoCo
+    v3, MAE, BYOL; correctness only, their time is not a measurement): run
+    while the kernels build. The pool's phases take their own."""
     with tempfile.TemporaryDirectory() as tmp:
-        for spec in specs:
+        for spec in (MOCOV3_SPEC, MAE_SPEC, BYOL_SPEC):
             _FIRST_STEPS[spec.tag] = _grads_card_vs_cpu(spec, tmp)
 
 
-def _in_thread(name: str, fn) -> Callable[[], None]:
-    """Starts `_timed(name, fn)` in a thread; the returned call joins it and
-    raises what it raised."""
-    error: list = []
+def phase_first_steps_dvae() -> dict:
+    """The standalone dVAE's first step card vs CPU (30: no phase trains it)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _grads_card_vs_cpu(DVAE_SPEC, tmp)
 
-    def run():
-        try:
-            _timed(name, fn)
-        except BaseException as exc:  # noqa: BLE001  (raised again on join)
-            error.append(exc)
 
-    thread = threading.Thread(target=run, name=name)
-    thread.start()
+# the kernel-free phases, each with its first steps, longest first (seconds
+# with their first steps when one process ran them all, on an H100 80GB HBM3
+# at 700 W: 58.2 for DINOv2 down to 9.3 for the dVAE)
+POOL = (
+    ("train DINOv2-ViT-S/14", phase_train_dinov2),
+    ("train CLIP-ViT-B/32", phase_train_clip),
+    ("train MoCoV2-R50", phase_train_moco),
+    ("train SimSiam-R50", phase_train_simsiam),
+    ("train V-MoE-B/16-E8", phase_train_vmoe),
+    ("train ConvMAE-B", phase_train_convmae),
+    ("train MoCoBYOL-R50", phase_train_mocobyol),
+    ("train DenseCL-R50", phase_train_densecl),
+    ("train ConvNeXt-B", phase_train_convnext),
+    ("train DINO-ViT-S/16", phase_train_dino),
+    ("train SwAV-R50", phase_train_swav),
+    ("train CAE-B/16", phase_train_cae),
+    ("train DeiT-B distilled <- RegNetY-4GF", phase_train_distill),
+    ("train BEiT-B/16", phase_train_beit),
+    ("train CvT-13", phase_train_cvt),
+    ("train XCiT-S12/16", phase_train_xcit),
+    ("train PixPro-R50", phase_train_pixpro),
+    ("train LV-ViT-S token labeling", phase_train_lvvit),
+    ("train SimCLR-R50", phase_train_simclr),
+    ("train T2T-ViT-14", phase_train_t2t),
+    ("train Mixer-B/16", phase_train_mixer),
+    ("train FastMoCo-R18", phase_train_fastmoco),
+    ("first steps dVAE-8192", phase_first_steps_dvae),
+)
 
-    def join() -> None:
-        thread.join()
-        if error:
-            raise error[0]
 
-    return join
+def _claim(pool_dir: str, i: int) -> bool:
+    """True for the first process that asks for the pool's i-th phase."""
+    try:
+        os.close(os.open(os.path.join(pool_dir, f"{i}.claimed"),
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return False
+    return True
+
+
+def run_pool(pool_dir: str, who: str, until: Callable[[], bool] = lambda: False,
+             before: Callable[[], None] = lambda: None) -> None:
+    """Runs the pool's phases no process has claimed, in order, each marked
+    done in `pool_dir` once it passed; stops where `until()` holds. `before()`
+    runs ahead of each claim."""
+    for i, (name, fn) in enumerate(POOL):
+        before()
+        if until():
+            return
+        if _claim(pool_dir, i):
+            _timed(f"{name} ({who})", fn)
+            open(os.path.join(pool_dir, f"{i}.done"), "w").close()
+
+
+def _no_build():
+    raise RuntimeError("chip_smoke: a kernel-free phase of the pool reached a kernel")
+
+
+def worker_main(pool_dir: str) -> None:
+    """The pool's worker process: full f32 as the main process; it builds no
+    kernel (a pool phase that reached one fails here)."""
+    _full_f32()
+    _build.load = _no_build
+    run_pool(pool_dir, "worker")
+
+
+class _Worker:
+    """`chip_smoke.py --pool DIR` in a process of its own, printing to the
+    script's output; the kernel sends it SIGKILL if the script dies first."""
+
+    def __init__(self, pool_dir: str):
+        def die_with_parent() -> None:
+            ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--pool", pool_dir],
+            stdin=subprocess.DEVNULL, preexec_fn=die_with_parent)
+
+    def check(self) -> None:
+        rc = self.proc.poll()
+        check(rc in (None, 0), f"the pool's worker failed (exit code {rc})")
+
+    def join(self) -> None:
+        rc = self.proc.wait()
+        check(rc == 0, f"the pool's worker failed (exit code {rc})")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+class _InThread:
+    """`_timed(name, fn)` in a thread; `join()` waits for it and raises what
+    it raised."""
+
+    def __init__(self, name: str, fn):
+        self.error: list = []
+
+        def run():
+            try:
+                _timed(name, fn)
+            except BaseException as exc:  # noqa: BLE001  (raised again on join)
+                self.error.append(exc)
+
+        self.thread = threading.Thread(target=run, name=name)
+        self.thread.start()
+
+    def running(self) -> bool:
+        return self.thread.is_alive()
+
+    def join(self) -> None:
+        self.thread.join()
+        if self.error:
+            raise self.error[0]
 
 
 def _timed(name: str, fn, *args):
@@ -4219,53 +4595,51 @@ def _kernel_row(name: str, source: str, replaces: str, launches: int, err: float
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_device()
-    join_build = _in_thread("build", phase_build)
-    _timed("first steps, card vs CPU, while the kernels build", phase_first_steps)
-    join_build()
-    fwd = _timed("kernel", phase_kernel)
-    bwd = _timed("kernel-bwd", phase_kernel_bwd)
-    wfwd = _timed("wattn", phase_wattn)
-    wbwd = _timed("wattn-bwd", phase_wattn_bwd)
-    ffwd = _timed("flash", phase_flash)
-    fbwd = _timed("flash-bwd", phase_flash_bwd)
-    serve_launches = _timed("serve CaiT-S24", phase_serve)
-    log(f"[serve] forward kernel launches on the serving path: {serve_launches}")
-    swin_serve_launches = _timed("serve Swin-T", phase_serve_swin)
-    log(f"[serve] window-attention launches on Swin-T's serving path: {swin_serve_launches}")
-    vit_serve_launches = _timed("serve ViT-B/16", phase_serve_vit)
-    log(f"[serve] flash forward launches on ViT-B/16's serving path: {vit_serve_launches}")
-    train = _timed("train CaiT-S24", phase_train, CAIT_TRAIN)["launches"]
-    swin = _timed("train Swin-T", phase_train, SWIN_TRAIN)["launches"]
-    vit = _timed("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
-    deit_serve_launches = _timed("serve DeiT-B distilled", phase_serve_deit)
-    log(f"[serve] flash forward launches on DeiT-B distilled's serving path: "
-        f"{deit_serve_launches}")
-    _timed("train ViT-L/16-384 remat", phase_train_vitl_remat)
-    _timed("train MoCoV3-ViT-B/16", phase_train_mocov3)
-    _timed("train MAE-ViT-B/16", phase_train_mae)
-    aug = _timed("augment", phase_augment)
-    _timed("train BYOL-R50", phase_train_byol)
-    _timed("train SimCLR-R50", phase_train_simclr)
-    _timed("train MoCoV2-R50", phase_train_moco)
-    _timed("train SimSiam-R50", phase_train_simsiam)
-    _timed("train MoCoBYOL-R50", phase_train_mocobyol)
-    _timed("train SwAV-R50", phase_train_swav)
-    _timed("train DenseCL-R50", phase_train_densecl)
-    _timed("train PixPro-R50", phase_train_pixpro)
-    _timed("train FastMoCo-R18", phase_train_fastmoco)
-    _timed("train CLIP-ViT-B/32", phase_train_clip)
-    _timed("train DINO-ViT-S/16", phase_train_dino)
-    _timed("train DINOv2-ViT-S/14", phase_train_dinov2)
-    _timed("train BEiT-B/16", phase_train_beit)
-    _timed("train CAE-B/16", phase_train_cae)
-    _timed("train ConvMAE-B", phase_train_convmae)
-    _timed("train XCiT-S12/16", phase_train_xcit)
-    _timed("train ConvNeXt-B", phase_train_convnext)
-    _timed("train DeiT-B distilled <- RegNetY-4GF", phase_train_distill)
-    _timed("train CvT-13", phase_train_cvt)
-    _timed("train T2T-ViT-14", phase_train_t2t)
-    _timed("train LV-ViT-S token labeling", phase_train_lvvit)
-    _timed("train Mixer-B/16", phase_train_mixer)
+    with tempfile.TemporaryDirectory() as pool_dir:
+        worker = _Worker(pool_dir)  # before any thread: it forks
+
+        def step(name: str, fn, *args):
+            worker.check()
+            return _timed(name, fn, *args)
+
+        try:
+            build = _InThread("build", phase_build)
+            _timed("first steps, card vs CPU, while the kernels build", phase_first_steps)
+            run_pool(pool_dir, "main", until=lambda: not build.running(), before=worker.check)
+            build.join()
+            serve_launches = step("serve CaiT-S24", phase_serve)
+            log(f"[serve] forward kernel launches on the serving path: {serve_launches}")
+            swin_serve_launches = step("serve Swin-T", phase_serve_swin)
+            log(f"[serve] window-attention launches on Swin-T's serving path: "
+                f"{swin_serve_launches}")
+            vit_serve_launches = step("serve ViT-B/16", phase_serve_vit)
+            log(f"[serve] flash forward launches on ViT-B/16's serving path: {vit_serve_launches}")
+            train = step("train CaiT-S24", phase_train, CAIT_TRAIN)["launches"]
+            swin = step("train Swin-T", phase_train, SWIN_TRAIN)["launches"]
+            vit = step("train ViT-B/16", phase_train, VIT_TRAIN)["launches"]
+            deit_serve_launches = step("serve DeiT-B distilled", phase_serve_deit)
+            log(f"[serve] flash forward launches on DeiT-B distilled's serving path: "
+                f"{deit_serve_launches}")
+            step("train ViT-L/16-384 remat", phase_train_vitl_remat)
+            step("train MoCoV3-ViT-B/16", phase_train_mocov3)
+            step("train MAE-ViT-B/16", phase_train_mae)
+            step("train BYOL-R50", phase_train_byol)
+            run_pool(pool_dir, "main", before=worker.check)
+            worker.join()
+            undone = [name for i, (name, _) in enumerate(POOL)
+                      if not os.path.exists(os.path.join(pool_dir, f"{i}.done"))]
+            check(not undone, f"pool phases not run: {undone}")
+            _timed("train MoCoV3-V-MoE-B/16", phase_train_mocov3_moe)
+            # the timed kernels last, alone on the card and the host
+            fwd = _timed("kernel", phase_kernel)
+            bwd = _timed("kernel-bwd", phase_kernel_bwd)
+            wfwd = _timed("wattn", phase_wattn)
+            wbwd = _timed("wattn-bwd", phase_wattn_bwd)
+            ffwd = _timed("flash", phase_flash)
+            fbwd = _timed("flash-bwd", phase_flash_bwd)
+            aug = _timed("augment", phase_augment)
+        finally:
+            worker.kill()
     a_rec = aug["cases"][(AUG_BYOL, tuple(sorted(AUG_VIEW1.items())))]
     f_rec, b_rec = fwd[TRAIN_CASE], bwd[TRAIN_CASE]
     wf_rec, wb_rec = wfwd[(WATTN_TIMED, torch.bfloat16)], wbwd[(WATTN_TIMED, torch.bfloat16)]
@@ -4303,4 +4677,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--pool"]:
+        worker_main(sys.argv[2])
+    else:
+        main()

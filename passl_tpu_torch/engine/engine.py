@@ -30,11 +30,18 @@ keys the model lacks are ignored.
 The loaders' worker pools fork in `__init__`, before the model moves to its
 device, so no worker is forked from a process that holds a CUDA context.
 
+The evaluation runs TopkAcc on the device (per-batch sums), and any other
+metric (mAP) on the host over the eval step's logits, as the JAX engine
+chooses (`engine.py:465-483`). `Global.hooks` builds the user hooks
+(`engine/hooks.py`, the JAX file), which the loops call at the JAX loops'
+boundaries, and `Global.profiler_options` (the CLI's `-p`) turns on the
+torch.profiler gate over a range of steps (`utils/profiler.py`).
+
 Not ported yet, and refused when the config asks for them: meshes and
-sharding (`DistributedStrategy` degrees above 1, `recompute`), a
+sharding (`DistributedStrategy` degrees above 1, `recompute`) and a
 `torch.distributed` world of more than one process (nothing reduces the
-gradients yet), hooks and the profiler. Refused as the JAX engine fails on
-it: `DistillationWrapper` beside a `Loss.Train` block.
+gradients yet). Refused as the JAX engine fails on it: `DistillationWrapper`
+beside a `Loss.Train` block.
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ from ..optimizer import build_optimizer
 from ..scheduler import build_lr_scheduler
 from ..utils import io, logger
 from . import loops as loops_mod
-from .steps import (EvalMetricsStep, TrainStep, apply_param_transforms, ema_pairs_of,
+from .hooks import HookList, build_hooks
+from .steps import (EvalMetricsStep, EvalStep, TrainStep, apply_param_transforms, ema_pairs_of,
                     param_transforms_of)
 
 _PARALLEL_KEYS = ("tensor_parallel", "mp_degree", "sharding", "sharding_degree", "fsdp_degree",
@@ -82,10 +90,6 @@ def _refuse_unported(config: Dict[str, Any]) -> None:
                                       "parallelism are not ported yet")
     if ds.get("recompute"):
         raise NotImplementedError("DistributedStrategy.recompute is not ported yet")
-    g = config.get("Global", {})
-    for key in ("hooks", "profiler_options"):
-        if g.get(key):
-            raise NotImplementedError(f"Global.{key} is not ported yet")
     if (config.get("Model", {}) or {}).get("name") == "DistillationWrapper" and (
             (config.get("Loss", {}) or {}).get("Train")):
         # ROADMAP.md, Queue 3: neither the wrapper's loss nor the Loss block is clearly meant
@@ -176,6 +180,7 @@ class Engine:
         self.save_on_interrupt = bool(g.get("save_on_interrupt", True))
         self.pretrained_model = g.get("pretrained_model", None)
         self.pretrained_report = None  # what Global.pretrained_model filled (`_load_pretrained`)
+        self.profiler_options = g.get("profiler_options", None)
         self.seed = int(g.get("seed", 42))
         rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
         random.seed(self.seed + rank)  # ambient RNGs; the loader keys its own per sample
@@ -205,8 +210,6 @@ class Engine:
                            if metric_cfg else [])
         if not self.metric_fns and self.eval_dataloader is not None:
             self.metric_fns = [TopkAcc()]
-        if not all(isinstance(m, TopkAcc) for m in self.metric_fns):
-            raise NotImplementedError("the port evaluates TopkAcc metrics only")
 
         # ---- precision
         fp16_cfg = config.get("FP16", None)
@@ -278,10 +281,16 @@ class Engine:
                                                                self.total_steps),
                                         param_transforms=param_transforms_of(self.model,
                                                                              transforms))
-        topk = sorted({k for m in self.metric_fns for k in m.topk}) or [1]
-        self.eval_metrics_step = EvalMetricsStep(topk)
-        self.eval_metrics_step_ema = (EvalMetricsStep(topk, use_ema=True)
-                                      if self.full_ema_decay else None)
+        # TopkAcc alone reduces on the device; another metric (mAP) scores the
+        # eval step's logits on the host
+        self.eval_step = EvalStep()
+        self.eval_step_ema = EvalStep(use_ema=True) if self.full_ema_decay else None
+        self.eval_metrics_step = self.eval_metrics_step_ema = None
+        if all(isinstance(m, TopkAcc) for m in self.metric_fns):
+            topk = sorted({k for m in self.metric_fns for k in m.topk}) or [1]
+            self.eval_metrics_step = EvalMetricsStep(topk)
+            self.eval_metrics_step_ema = (EvalMetricsStep(topk, use_ema=True)
+                                          if self.full_ema_decay else None)
         loop_name = g.get("train_loop", None) or (
             "ClassificationTrainingEpochLoop" if self.criterion is not None
             else "ContrastiveLearningTrainingEpochLoop")
@@ -290,6 +299,7 @@ class Engine:
         self.train_loop = loops_mod.LOOPS[loop_name](self) if mode == "train" else None
         self.eval_loop = (loops_mod.ClassificationEvaluationLoop(self)
                           if self.eval_dataloader is not None else None)
+        self.hooks = HookList(build_hooks(g.get("hooks")))
 
     def _load_pretrained(self, ema_map: list) -> None:
         """`Global.pretrained_model` (a torch state_dict file) into the model

@@ -5,10 +5,14 @@ a partial epoch at the index level), trains epoch by epoch, stops at
 `max_train_step` or on SIGTERM/SIGINT (checkpointing `latest` first), saves
 `latest` and `epoch_N` every `save_interval` epochs and `best` after an eval
 that improves, and logs `batch_cost`, `reader_cost`, `ips` and the peak
-device memory every `print_batch_step` steps. `ClassificationEvaluationLoop`
-runs the eval set through the on-device top-k step and divides by the exact
-count of real samples. One process: the collectives of multi-process runs
-are not ported yet.
+device memory every `print_batch_step` steps. It calls the engine's hooks
+where the JAX loop does (`train_begin`, `epoch_begin`, `iter_end` after each
+step, `epoch_end`, `eval_end` after each eval, `train_end`) and, with
+`Global.profiler_options`, the profiler gate after every step.
+`ClassificationEvaluationLoop` runs the eval set through the on-device top-k
+step, or, for another metric (mAP), scores the eval step's logits on the
+host, and divides by the exact count of real samples. One process: the
+collectives of multi-process runs are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from ..data import to_device
-from ..utils import io, logger
+from ..utils import io, logger, profiler
 from ..utils.misc import SmoothedValue
 
 
@@ -74,7 +78,9 @@ class TrainingEpochLoop:
         self._interrupted = False
         old_handlers = self._install_signal_handlers() if e.save_on_interrupt else {}
         try:
+            e.hooks.call("train_begin", e)
             self._run_epochs(start_epoch, skip_steps)
+            e.hooks.call("train_end", e)
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
@@ -106,8 +112,10 @@ class TrainingEpochLoop:
         e = self.engine
         for epoch in range(start_epoch, e.epochs + 1):
             e.train_dataloader.set_epoch(epoch)
+            e.hooks.call("epoch_begin", e, epoch)
             stop = self.train_one_epoch(epoch, skip_steps=skip_steps)
             skip_steps = 0
+            e.hooks.call("epoch_end", e, epoch)
             if e.eval_during_train and e.eval_unit == "epoch" and epoch % e.eval_interval == 0:
                 self._run_eval(epoch)
             if stop or (e.save_interval > 0 and epoch % e.save_interval == 0):
@@ -148,6 +156,9 @@ class TrainingEpochLoop:
                     self.time_info["batch_cost"].update(time.perf_counter() - tic)
                 tic = time.perf_counter()
                 global_step = (epoch - 1) * steps_per_epoch + i + 1
+                e.hooks.call("iter_end", e, global_step, metrics)
+                if e.profiler_options:
+                    profiler.add_profiler_step(e.profiler_options, global_step)
                 if e.eval_during_train and e.eval_unit == "step" and global_step % e.eval_interval == 0:
                     self._run_eval(epoch)
                 if self._interrupted or (e.max_train_step and global_step >= e.max_train_step):
@@ -161,6 +172,7 @@ class TrainingEpochLoop:
         if e.eval_loop is None:
             return
         metric = e.eval_loop.run()
+        e.hooks.call("eval_end", e, metric)
         if metric is not None and metric > self.best_metric["metric"]:
             self.best_metric.update(metric=metric, epoch=epoch, global_step=e.state.step)
             io.save_checkpoint(e.state, e.output_dir, prefix="best",
@@ -183,9 +195,11 @@ class SimSiamTrainingEpochLoop(ContrastiveLearningTrainingEpochLoop):
 
 
 class ClassificationEvaluationLoop:
-    """Top-k over the eval set: per-batch sums on the device, divided by the
-    count of real samples (a ragged tail batch is padded to the batch size
-    and masked out)."""
+    """The metrics over the eval set, divided by the count of real samples (a
+    ragged tail batch is padded to the batch size and masked out): TopkAcc as
+    per-batch sums on the device; another metric (mAP) on the host, over each
+    batch's logits of real samples, weighted by their count (JAX
+    `loops.py:345-408`, one process)."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -196,7 +210,7 @@ class ClassificationEvaluationLoop:
         if e.eval_dataloader is None:
             return None
         n_total = len(e.eval_dataloader.dataset)
-        seen, denom, full_bs = 0, 0.0, None
+        seen, denom, full_bs = 0, 0, None
         sums: Dict[str, float] = {}
         tic = time.perf_counter()
         with contextlib.closing(iter(e.eval_dataloader)) as batches:
@@ -214,17 +228,14 @@ class ClassificationEvaluationLoop:
                     labels = np.concatenate([labels, np.repeat(labels[-1:], pad, axis=0)])
                 valid = np.zeros(full_bs, dtype=bool)
                 valid[:take] = True
-                gi, gl, gv = to_device((images, labels.astype(np.int64), valid), e.device)
-                for suffix, step in (("", e.eval_metrics_step), ("_ema", e.eval_metrics_step_ema)):
-                    if step is None:
-                        continue
-                    out = step(e.state, gi, gl, gv)
-                    count = float(out.pop("count"))
-                    if not suffix:
-                        denom += count
-                    for k, v in out.items():
-                        sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
+                if e.eval_metrics_step is not None:
+                    self._device_sums(sums, images, labels, valid)
+                else:
+                    self._host_sums(sums, images, labels, take)
+                    denom += take
                 seen += take
+        if e.eval_metrics_step is not None:
+            denom = sums.pop("count", 0.0)
         if denom == 0:
             return None
         avg = {k: v / denom for k, v in sums.items()}
@@ -232,7 +243,37 @@ class ClassificationEvaluationLoop:
         logger.info("[Eval] " + " ".join(f"{k}: {v:.5f}" for k, v in avg.items())
                     + f" ({int(denom)} samples, {cost:.1f}s, {denom / cost:.1f} imgs/s)")
         self.last_metrics = avg
-        return avg["top1"] if "top1" in avg else next(iter(avg))
+        return avg["top1" if "top1" in avg else next(iter(avg))]
+
+    def _device_sums(self, sums: Dict[str, float], images, labels, valid) -> None:
+        """TopkAcc's sums of one batch and its count of real samples, on the device."""
+        e = self.engine
+        gi, gl, gv = to_device((images, labels.astype(np.int64), valid), e.device)
+        for suffix, step in (("", e.eval_metrics_step), ("_ema", e.eval_metrics_step_ema)):
+            if step is None:
+                continue
+            out = step(e.state, gi, gl, gv)
+            count = float(out.pop("count"))
+            if not suffix:
+                sums["count"] = sums.get("count", 0.0) + count
+            for k, v in out.items():
+                sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v)
+
+    def _host_sums(self, sums: Dict[str, float], images, labels, take: int) -> None:
+        """Each metric of one batch's first `take` rows, scored on the host over
+        the eval step's logits (and the EMA shadow's), times `take`."""
+        e = self.engine
+        if take == 0:
+            return
+        gi = to_device(images, e.device)
+        lab = torch.from_numpy(np.asarray(labels[:take]))
+        for suffix, step in (("", e.eval_step), ("_ema", e.eval_step_ema)):
+            if step is None:
+                continue
+            logits = step(e.state, gi)[:take].float().cpu()
+            for metric in e.metric_fns:
+                for k, v in metric(logits, lab).items():
+                    sums[k + suffix] = sums.get(k + suffix, 0.0) + float(v) * take
 
 
 LOOPS = {

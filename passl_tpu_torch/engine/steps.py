@@ -6,8 +6,9 @@ and backward at the loss scale, unscale and finite check, global-norm clip,
 the lr of the state's step, the optimizer update (skipped on a non-finite
 gradient when loss scaling is on), the full-model EMA, and the metrics `lr`,
 `grad_norm` and the loss dict. With a criterion the model maps images to
-logits (classification); without one (the SSL methods, `steps.py:96-100` of
-the JAX package) `model(batch, generator=...)` returns the loss dict itself,
+logits (classification), or a dict of the logits and auxiliary terms whose
+`*loss*` entries join the objective (V-MoE); without one (the SSL methods,
+`steps.py:96-100` of the JAX package) `model(batch, generator=...)` returns the loss dict itself,
 and after the optimizer step a model's `param_transforms` (`param_transforms`,
 e.g. SwAV's prototypes l2-normalized) rewrite their parameters in place in
 f32, then the EMA pairs (`ema_pairs`, a momentum encoder's target tower
@@ -142,7 +143,21 @@ class TrainStep:
             return _total_loss(model(_micro(batch, i, acc), generator=generator))
         images, labels = _split(batch)
         logits = model(_micro(images, i, acc), generator=generator)
-        return _total_loss(self.criterion(logits, _micro(labels, i, acc)))
+        # a model with auxiliary objectives (V-MoE's router losses) returns
+        # {"logits", ...aux}: every `*loss*` entry joins the objective, the others
+        # are metrics, and the logged "loss" is the total (JAX `steps.py:106-125`)
+        aux = {}
+        if isinstance(logits, dict):
+            aux = {k: v for k, v in logits.items() if k != "logits"}
+            logits = logits["logits"]
+        total, loss_dict = _total_loss(self.criterion(logits, _micro(labels, i, acc)))
+        for k, v in aux.items():
+            if "loss" in k:
+                total = total + v
+            loss_dict[k] = v
+        if aux:
+            loss_dict["loss"] = total
+        return total, loss_dict
 
     def forward_backward(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """Gradients of the (scaled) loss into the parameters' `.grad`, summed
@@ -203,6 +218,22 @@ class TrainStep:
             metrics["loss_scale"] = state.scaler_state.scale
         state.step += 1
         return metrics
+
+
+class EvalStep:
+    """The eval forward to logits (the counterpart of `make_eval_step`), on the
+    state's EMA shadow with `use_ema`: the host-logits path of the metrics
+    other than TopkAcc (mAP)."""
+
+    def __init__(self, *, use_ema: bool = False):
+        self.use_ema = use_ema
+
+    @torch.no_grad()
+    def __call__(self, state: TrainState, images: torch.Tensor) -> torch.Tensor:
+        model = state.model.eval()
+        if self.use_ema:
+            return torch.func.functional_call(model, state.ema_params, (images,))
+        return model(images)
 
 
 class EvalMetricsStep:

@@ -28,7 +28,14 @@ optimizer off `momentum`.
 `torch.no_grad()` and frozen, and a linear head of normal(0.01) weights and
 zero bias.
 
-A mixture-of-experts encoder (`num_experts > 0`, V-MoE) is refused.
+With `num_experts > 0` (JAX `:86-110`) every `moe_interval`-th encoder block
+is V-MoE's `BlockMoE` (`models/vit_moe.py`), the encoder's `attn_impl` passed
+to every block, dense and MoE alike; in training the encoder returns
+{"features", "moe_aux_loss", "moe_balance"}, and the loss takes
+0.5 (aux1 + aux2) of the base tower's two forwards (the momentum tower's
+routers take no gradient: EMA copies, as its other weights), with
+`moe_balance` the two forwards' mean as a metric. `optimizer_overrides`
+then exempts the stacked expert biases from weight decay, as V-MoE's.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from ..nn.layers import Block, Dense, LayerNorm, PatchEmbed
 from ..nn.norm import BatchNorm, l2_normalize
 from .base import register_model, two_views
 from .utils import FixedTable
+from .vit_moe import BlockMoE, is_moe_block, run_moe_blocks
 from .utils.pos_embed import mocov3_2d_sincos_pos_embed
 
 DtypeLike = Union[str, torch.dtype]
@@ -61,9 +69,6 @@ class MoCoV3ViT(nn.Module):
                  capacity_factor: float = 1.25, moe_aux_weight: float = 0.01,
                  moe_group_size: int = 256):
         super().__init__()
-        if num_experts:
-            raise NotImplementedError("MoCoV3ViT num_experts > 0 (a V-MoE encoder) is not "
-                                      "ported yet")
         dtype = resolve_dtype(dtype)
         softmax_dtype = resolve_dtype(softmax_dtype)
         self.img_size = img_size
@@ -79,25 +84,35 @@ class MoCoV3ViT(nn.Module):
         grid = img_size // patch_size
         self.pos_embed = FixedTable(mocov3_2d_sincos_pos_embed(embed_dim, grid, grid))
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
+        self.num_experts = num_experts
         self.blocks = nn.ModuleList(
+            BlockMoE(embed_dim, num_heads, mlp_ratio, qkv_bias=True, num_experts=num_experts,
+                     moe_k=moe_k, capacity_factor=capacity_factor, aux_weight=moe_aux_weight,
+                     group_size=moe_group_size, attn_impl=attn_impl, dtype=dtype,
+                     softmax_dtype=softmax_dtype)
+            if num_experts and is_moe_block(i, moe_interval) else
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias=True, dtype=dtype,
                   softmax_dtype=softmax_dtype, attn_impl=attn_impl)
-            for _ in range(depth))
+            for i in range(depth))
         self.norm = LayerNorm(embed_dim, eps=1e-6, dtype=dtype)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         tinit.normal_(self.cls_token, std=1e-6, generator=generator)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """Features [n, embed_dim]; with experts, in training, the dict
+        {"features", "moe_aux_loss", "moe_balance"}."""
         n = x.shape[0]
         x = self.patch_embed(x)
         if self.stop_grad_conv1:
             x = x.detach()
         cls = self.cls_token.to(x.dtype).expand(n, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.on(x.device).to(x.dtype)
-        for blk in self.blocks:  # no stochastic depth: nothing to draw
-            x = blk(x)
-        return self.norm(x[:, 0])  # LayerNorm is per token
+        x, aux = run_moe_blocks(self.blocks, x, None)  # no stochastic depth: nothing to draw
+        feats = self.norm(x[:, 0])  # LayerNorm is per token
+        if self.num_experts and self.training:
+            return {"features": feats, **aux}
+        return feats
 
 
 class _MLPHead(nn.Module):
@@ -129,7 +144,8 @@ class _MLPHead(nn.Module):
 
 
 class _Tower(nn.Module):
-    """encoder -> head (3 layers) -> predictor (2 layers; the keys skip it)."""
+    """encoder -> head (3 layers) -> predictor (2 layers; the keys skip it):
+    x -> (z, the encoder's router aux dict or None)."""
 
     def __init__(self, encoder: dict, dim: int, mlp_dim: int, dtype: torch.dtype):
         super().__init__()
@@ -137,9 +153,13 @@ class _Tower(nn.Module):
         self.head = _MLPHead(3, self.encoder.embed_dim, mlp_dim, dim, dtype=dtype)
         self.predictor = _MLPHead(2, dim, mlp_dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, run_predictor: bool = True) -> torch.Tensor:
-        z = self.head(self.encoder(x))
-        return self.predictor(z) if run_predictor else z
+    def forward(self, x: torch.Tensor, run_predictor: bool = True) -> tuple:
+        feats, aux = self.encoder(x), None
+        if isinstance(feats, dict):  # a MoE encoder: the router aux rides along
+            aux = {k: v for k, v in feats.items() if k != "features"}
+            feats = feats["features"]
+        z = self.head(feats)
+        return (self.predictor(z) if run_predictor else z), aux
 
 
 def contrastive_loss(q: torch.Tensor, k: torch.Tensor, T: float) -> torch.Tensor:
@@ -164,11 +184,17 @@ class MoCoV3Pretrain(nn.Module):
         encoder = dict(encoder or {})
         self.T = T
         self.base_momentum = base_momentum
+        self.num_experts = encoder.get("num_experts", 0)
         self.base = _Tower(encoder, dim, mlp_dim, dtype)
         self.momentum = _Tower(encoder, dim, mlp_dim, dtype)
 
     def ema_map(self) -> list:
         return [("base", "momentum", {"momentum": self.base_momentum, "schedule": "cosine"})]
+
+    def optimizer_overrides(self) -> list:
+        if self.num_experts:  # the stacked expert biases, as V-MoE's
+            return [{"name": r"moe/(b1|b2)$", "weight_decay": 0.0}]
+        return []
 
     @staticmethod
     def frozen_patterns() -> list:
@@ -182,17 +208,21 @@ class MoCoV3Pretrain(nn.Module):
 
     def forward(self, batch, generator: Optional[torch.Generator] = None) -> dict:
         x1, x2 = two_views(batch)
-        q1 = self.base(x1)
-        q2 = self.base(x2)
+        q1, aux1 = self.base(x1)
+        q2, aux2 = self.base(x2)
         with torch.no_grad():
-            k1 = self.momentum(x1, run_predictor=False)
-            k2 = self.momentum(x2, run_predictor=False)
+            k1 = self.momentum(x1, run_predictor=False)[0]
+            k2 = self.momentum(x2, run_predictor=False)[0]
         loss = contrastive_loss(q1, k2, self.T) + contrastive_loss(q2, k1, self.T)
         with torch.no_grad():
             logits = (l2_normalize(at_least_f32(q1), dim=1)
                       @ l2_normalize(at_least_f32(k2), dim=1).T)
             hits = logits.argmax(dim=1) == torch.arange(q1.shape[0], device=q1.device)
-        return {"loss": loss, "acc1": hits.to(loss.dtype).mean()}
+        out = {"loss": loss, "acc1": hits.to(loss.dtype).mean()}
+        if aux1 is not None:  # the base tower's router losses join the logged objective
+            out["loss"] = loss + 0.5 * (aux1["moe_aux_loss"] + aux2["moe_aux_loss"])
+            out["moe_balance"] = 0.5 * (aux1["moe_balance"] + aux2["moe_balance"])
+        return out
 
 
 @register_model

@@ -5,7 +5,9 @@ Names: a flax module path `blocks_3/attn/qkv/kernel` becomes
 ModuleList where the model holds such items; CLIP's `ln_1` stays), `kernel`
 and LayerNorm's `scale` become `weight`, other leaf names stay (an
 `nn.Embed`'s `embedding`, as the dVAE's `codebook/embedding`; BEiT's
-`relative_position_bias_table`, `gamma_1`, `gamma_2`). Layouts: a Dense
+`relative_position_bias_table`, `gamma_1`, `gamma_2`; V-MoE's `router`
+`[d, E]` and stacked experts `w1`, `b1`, `w2`, `b2`, in flax's layouts
+as they are). Layouts: a Dense
 kernel `[in, out]` becomes `[out, in]`, a Conv kernel HWIO becomes OIHW (a
 depthwise `[k, k, 1, c]` becomes `[c, 1, k, k]`), and the kernel of a
 transposed conv (a `nn.layers.ConvTranspose` in the model) HWIO becomes IOHW

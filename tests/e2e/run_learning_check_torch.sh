@@ -8,9 +8,9 @@
 #
 #   tests/e2e/run_learning_check_torch.sh \
 #       simclr|mocov2|byol|simsiam|mocobyol|swav|densecl|pixpro|fastmoco|mocov3|mae \
-#       |clip|dino|dinov2|beit|cae|convmae|distill|random|random_mocov3|random_mae \
-#       |random_clip|random_dino|random_dinov2|random_beit|random_cae|random_convmae \
-#       |random_distill \
+#       |clip|dino|dinov2|beit|cae|convmae|distill|vmoe|mocov3_moe|random|random_mocov3 \
+#       |random_mae|random_clip|random_dino|random_dinov2|random_beit|random_cae \
+#       |random_convmae|random_distill|random_mocov3_moe \
 #       [output dir [-o Section.key=value ...]]
 #
 # Overrides after the output dir go to the pretrain and to the probe alike
@@ -42,11 +42,17 @@
 # eval loop's) must pass the bar and beat the untrained student's
 # (`random_distill`, the same eval over the fresh model); it also prints the
 # student's top-1 agreement with the teacher on the held-out set.
+# `vmoe` trains the tiny V-MoE classifier of tests/e2e/vmoe_structured.yaml
+# (no extract, no probe): its held-out top-1 must pass 0.9 and its last logged
+# router balance (E sum_e f_e P_e: 1 balanced, E collapsed) stay under 1.5, as
+# tests/e2e/run_learning_check.sh:71-80 holds the JAX package. `mocov3_moe`
+# pretrains MoCo v3 over a V-MoE encoder and probes it as `mocov3`; its last
+# logged router balance must stay under 1.5 too (JAX `:125-130`).
 # `random`, `random_mocov3`, `random_mae`, `random_dino`, `random_dinov2`,
-# `random_beit`, `random_cae` and `random_convmae` are the floors: no
-# pretraining, the same probe over the untrained ResNet-18 backbone, MoCo v3,
-# MAE (its sin-cos table injected), DINO, DINOv2, BEiT, CAE or ConvViT
-# encoder; `random_clip` is the retrieval of the untrained CLIP. A method
+# `random_beit`, `random_cae`, `random_convmae` and `random_mocov3_moe` are the
+# floors: no pretraining, the same probe over the untrained ResNet-18 backbone,
+# MoCo v3, MAE (its sin-cos table injected), DINO, DINOv2, BEiT, CAE, ConvViT or
+# MoCo v3 V-MoE encoder; `random_clip` is the retrieval of the untrained CLIP. A method
 # learned only by as much as its reading clears its floor.
 # The floors print their reading and exit 0: they pass or fail no bar.
 set -euo pipefail
@@ -90,6 +96,10 @@ case "$METHOD" in
           PROBE_CFG=tests/e2e/probe_convmae_structured.yaml
           PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
   distill) CFG=tests/e2e/distill_structured.yaml; PREFIX=__distill__ ;;
+  vmoe)   CFG=tests/e2e/vmoe_structured.yaml; PREFIX=__supervised__ ;;
+  mocov3_moe) CFG=tests/e2e/mocov3_moe_structured.yaml; PREFIX=base.encoder; RENAME=encoder
+          PROBE_CFG=tests/e2e/probe_mocov3_moe_structured.yaml; BALANCE_BAR=1.5
+          PRETRAIN_EXTRA=(-o Global.print_batch_step=1); LOSS_BAR=0.75 ;;
   random) CFG=; PREFIX= ;;
   random_mocov3) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_structured.yaml ;;
   random_mae) CFG=tests/e2e/mae_structured.yaml; PREFIX=__mae__
@@ -101,10 +111,12 @@ case "$METHOD" in
   random_cae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_cae_structured.yaml ;;
   random_convmae) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_convmae_structured.yaml ;;
   random_distill) CFG=tests/e2e/distill_structured.yaml; PREFIX=__distill__ ;;
+  random_mocov3_moe) CFG=; PREFIX=; PROBE_CFG=tests/e2e/probe_mocov3_moe_structured.yaml ;;
   *) echo "unknown method $METHOD (simclr | mocov2 | byol | simsiam | mocobyol | swav |" \
        "densecl | pixpro | fastmoco | mocov3 | mae | clip | dino | dinov2 | beit | cae |" \
-       "convmae | distill | random | random_mocov3 | random_mae | random_clip | random_dino |" \
-       "random_dinov2 | random_beit | random_cae | random_convmae | random_distill)"; exit 2 ;;
+       "convmae | distill | vmoe | mocov3_moe | random | random_mocov3 | random_mae |" \
+       "random_clip | random_dino | random_dinov2 | random_beit | random_cae | random_convmae |" \
+       "random_distill | random_mocov3_moe)"; exit 2 ;;
 esac
 FLOOR=$([[ "$METHOD" == random* ]] && echo 1 || echo 0)
 rm -rf "$OUT"
@@ -173,6 +185,15 @@ PYEOF
 fi
 
 last_top1() { grep -oE "top1: [0-9.]+" "$1" | tail -1 | awk '{print $2}'; }
+last_balance() { grep -oE "moe_balance: [0-9.]+" "$1" | tail -1 | awk '{print $2}'; }
+
+hold_router_balance() {
+  [ -n "${BALANCE_BAR:-}" ] || return 0
+  # the router must not collapse onto few experts over the pretrain
+  bal=$(last_balance "$OUT/pretrain.log")
+  echo "router balance after the pretrain: $bal (1.0 = balanced, bar < $BALANCE_BAR)"
+  awk -v t="$bal" -v b="$BALANCE_BAR" 'BEGIN { exit !(t < b) }'
+}
 
 if [ "$PREFIX" = __distill__ ]; then
   # the untrained student's held-out top-1: the eval loop over the fresh model
@@ -252,6 +273,19 @@ elif [ "$PREFIX" = __clip__ ]; then
   awk -v t="$r1" -v b="$BAR" 'BEGIN { exit !(t > b) }'
   echo "LEARNING CHECK PASSED"
   exit 0
+elif [ "$PREFIX" = __supervised__ ]; then
+  # the model is the classifier: the eval loop's held-out top-1 and the last
+  # logged router balance
+  python -m passl_tpu_torch.tools.train -c "$CFG" --device cuda \
+    -o Global.output_dir="$OUT/train" "${EXTRA[@]}" | tee "$OUT/train.log"
+  top1=$(last_top1 "$OUT/train.log")
+  bal=$(last_balance "$OUT/train.log")
+  end=$(date +%s)
+  echo "FINAL $METHOD supervised top1: $top1 (chance = 0.10, bar = 0.9), router balance:" \
+    "$bal (bar < 1.5); wall time $((end - start)) s"
+  awk -v t="$top1" -v b="$bal" 'BEGIN { exit !(t > 0.9 && b < 1.5) }'
+  echo "LEARNING CHECK PASSED"
+  exit 0
 elif [ "$FLOOR" = 1 ] && [ -z "$CFG" ]; then  # the floor: the probe over the untrained backbone
   PRETRAINED=None
 elif [ "$PREFIX" = __mae__ ]; then
@@ -316,6 +350,7 @@ else
     -o Global.output_dir="$OUT/pretrain" "${EXTRA[@]}" "${PRETRAIN_EXTRA[@]}" \
     | tee "$OUT/pretrain.log"
   hold_pretrain_loss
+  hold_router_balance
   # CAE keeps its encoder at the top level under the probe's own names: no rename
   python -m passl_tpu_torch.tools.extract_weights \
     --checkpoint "$OUT/pretrain/latest.pt" --prefix "$PREFIX" \

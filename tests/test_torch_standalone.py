@@ -8,8 +8,10 @@ package's batches bit for bit from the same config and seed, the captioned
 datasets' included; its copy of `models/utils/pos_embed.py` is the JAX file
 under its header, its tables bit for bit; its copy of `data/masking.py` is the JAX file
 under its header, its masks and BEiT's and CAE's two-view batches bit for
-bit; and its copy of `data/tokenizer.py` is the JAX file under its header, reading its own copy
-of the BPE vocabulary (the JAX asset's sha256), its tokens bit for bit.
+bit; its copy of `data/tokenizer.py` is the JAX file under its header, reading its own copy
+of the BPE vocabulary (the JAX asset's sha256), its tokens bit for bit; its copy
+of `engine/hooks.py` is the JAX file under its header; and its `ProfilerOptions`
+is the JAX class's source.
 """
 import ast
 import copy
@@ -399,3 +401,41 @@ def test_port_loader_gives_the_token_label_batches_bitwise(name, tmp_path):
                 assert white  # the image flipped: its white half on the left
                 np.testing.assert_array_equal(g["token_idx"][..., 0],
                                               np.broadcast_to([1, 1, 0, 0], (4, grid, grid)))
+
+
+# ------------------------------------------------ the hooks and profiler copies
+
+
+def test_hooks_copy_is_the_jax_file_under_its_header():
+    """`passl_tpu_torch/engine/hooks.py` is the JAX package's file under two
+    header lines (its imports are relative: the port's registry and logger),
+    its `IterTimerHook` registered by name."""
+    from passl_tpu_torch.engine import hooks
+
+    with open(os.path.join(REPO, "passl_tpu", "engine", "hooks.py")) as f:
+        jax_src = f.read()
+    with open(os.path.join(REPO, "passl_tpu_torch", "engine", "hooks.py")) as f:
+        lines = f.read().split("\n")
+    assert lines[0].startswith("# Copied from passl_tpu/engine/hooks.py")
+    assert "\n".join(lines[2:]) == jax_src
+    assert hooks.HOOKS.get("IterTimerHook") is hooks.IterTimerHook
+    assert [type(h).__name__ for h in hooks.build_hooks(
+        [{"name": "IterTimerHook", "priority": 60}, {"name": "IterTimerHook", "priority": 5}])] \
+        == ["IterTimerHook"] * 2
+
+
+def test_profiler_options_copy_is_the_jax_class():
+    """`ProfilerOptions` of `passl_tpu_torch/utils/profiler.py` is the JAX
+    class's source as it is, the module headed by the file it came from;
+    `add_profiler_step` is the port's own, on torch.profiler."""
+    import inspect
+
+    from passl_tpu.utils import profiler as jax_profiler
+    from passl_tpu_torch.utils import profiler
+
+    with open(os.path.join(REPO, "passl_tpu_torch", "utils", "profiler.py")) as f:
+        first = f.readline()
+    assert first.startswith("# `ProfilerOptions` copied from passl_tpu/utils/profiler.py")
+    assert inspect.getsource(profiler.ProfilerOptions) == inspect.getsource(
+        jax_profiler.ProfilerOptions)
+    assert "torch.profiler" in inspect.getsource(profiler.add_profiler_step)

@@ -216,8 +216,8 @@ def test_eval_counts_a_ragged_tail_exactly(tmp_path):
 @pytest.mark.parametrize("override, error", [
     ("DistributedStrategy={'sharding_degree': 2}", NotImplementedError),
     ("DistributedStrategy={'recompute': {'layerlist_interval': 1}}", NotImplementedError),
-    ("Global.hooks=[{'name': 'x'}]", NotImplementedError),
-    ("Optimizer.name='MomentumLARC'", NotImplementedError),
+    ("DistributedStrategy={'pp_degree': 2}", NotImplementedError),
+    ("Optimizer.name='Lamb'", NotImplementedError),  # a rule neither package has
     ("Global.checkpoint='./output/latest.ckpt'", NotImplementedError),
 ])
 def test_engine_refuses_what_it_does_not_port(tmp_path, override, error):
